@@ -1,0 +1,43 @@
+"""What crosses between the JAX package and this one: encoded rows.
+
+Both packages store a field element as the same packed int32 residue rows
+(rns_constants.py), so the JAX package's encoded G1Affine/G2Affine/Fq12
+arrays, handed over as numpy, become this package's tensors unchanged, and
+the two compute the same rows from the same inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.rns import fp
+from .ops.rns.lines import G1Affine, G2Affine
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    # a copy: arrays handed over from JAX are read-only
+    a = np.array(arr, dtype=np.int32, order="C")
+    return torch.from_numpy(a).to(fp.resolve_device(device))
+
+
+def g1_from_numpy(x, y, infinity, device=None) -> G1Affine:
+    """Encoded G1 rows: x, y, infinity (rows..., LANES)."""
+    return G1Affine(_tensor(x, device), _tensor(y, device),
+                    _tensor(infinity, device))
+
+
+def g2_from_numpy(x, y, infinity, device=None) -> G2Affine:
+    """Encoded G2 rows: x, y (rows..., 2, LANES), infinity (rows..., LANES)."""
+    return G2Affine(_tensor(x, device), _tensor(y, device),
+                    _tensor(infinity, device))
+
+
+def fq12_from_numpy(a, device=None) -> torch.Tensor:
+    """Encoded Fq12 rows (..., 12, LANES)."""
+    return _tensor(a, device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Rows back to numpy int32, for the JAX package or for decoding."""
+    return t.detach().cpu().numpy()

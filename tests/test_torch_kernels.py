@@ -1,0 +1,208 @@
+"""The port's kernel wrappers, the generated kernel header and the port's
+import boundary.
+
+On the CPU a wrapper runs its plain version and counts no launch; on a CUDA
+device it launches its kernel or raises. The tests marked `gpu` hold each
+kernel bit for bit to its plain version and skip where there is no card."""
+
+import ast
+import random
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from plonky2_bls12_381_pairing_torch import rns_constants as RC
+from plonky2_bls12_381_pairing_torch.models.schedule import _GS_SEGMENTS
+from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernel_tables, kernels, tower
+from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine
+from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "plonky2_bls12_381_pairing_torch"
+
+
+def cyclotomic_rows(n: int, seed: int) -> np.ndarray:
+    r = random.Random(seed)
+    out = []
+    for _ in range(n):
+        f = rm.rand_fq12(r)
+        t = f.frobenius_pow(6) * f.inv()
+        out.append(t.frobenius_pow(2) * t)
+    return tower.encode(out)
+
+
+def fp_rows(n: int, seed: int) -> np.ndarray:
+    r = random.Random(seed)
+    xs = [r.randrange(rm.P) for _ in range(n)]
+    xs[1] = 0
+    return fp.encode(xs)
+
+
+def test_cpu_wrappers_run_plain_versions():
+    a = torch.from_numpy(cyclotomic_rows(2, 0xE1))
+    segs = ((2, True), (1, True), (3, False))
+    kernels.reset_launches()
+    got = kernels.cyc_exp(a, segs)
+    want = a
+    for n, m in segs:
+        for _ in range(n):
+            want = tower.cyclotomic_square(want)
+        if m:
+            want = tower.mul(want, a)
+    assert torch.equal(got, want)
+    x = torch.from_numpy(fp_rows(4, 0xE2))
+    assert torch.equal(kernels.pow_static_fused(x, 0xD201), fp.pow_static(x, 0xD201))
+    assert kernels.launches == {"cyc_exp": 0, "pow_static": 0}
+    with pytest.raises(ValueError):
+        kernels.pow_static_fused(x, 0)
+
+
+def test_wrappers_refuse_other_devices():
+    """No fallback: a tensor that is neither on the CPU nor on a CUDA device
+    is refused, never computed by the plain version."""
+    with pytest.raises(ValueError):
+        kernels.cyc_exp(torch.empty((1, 12, RC.LANES), dtype=torch.int32,
+                                    device="meta"), _GS_SEGMENTS)
+    with pytest.raises(ValueError):
+        kernels.pow_static_fused(torch.empty((1, RC.LANES), dtype=torch.int32,
+                                             device="meta"), rm.P - 2)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = rm.G1Affine.generator()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        G1Affine.encode([g, g])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tower.one((1,))
+    assert G1Affine.encode([g, g], device="cpu").x.device.type == "cpu"
+
+
+def _header_arrays(text: str) -> dict:
+    out = {}
+    pat = re.compile(r"__constant__ (int|float) (\w+)((?:\[\d+\])+) = \{([^}]*)\};")
+    for ctype, name, dims, body in pat.findall(text):
+        shape = tuple(int(d) for d in re.findall(r"\d+", dims))
+        vals = [v.strip() for v in body.replace("\n", " ").split(",") if v.strip()]
+        if ctype == "float":
+            arr = np.array([float.fromhex(v.rstrip("f")) for v in vals], dtype=np.float32)
+        else:
+            arr = np.array([int(v) for v in vals], dtype=np.int64)
+        out[name] = arr.reshape(shape)
+    return out
+
+
+def test_kernel_header_matches_tables():
+    """The generated header carries the port's tables exactly (both packed
+    slots share each 64-lane row) and the plain formulas' bias rows."""
+    arrs = _header_arrays(kernel_tables.header_text())
+    tile = lambda name: np.tile(arrs[name], RC.PACK)
+    assert np.array_equal(tile("RNS_M"), RC.M_I32)
+    assert np.array_equal(tile("RNS_INV_M").astype(np.float32), RC.INV_M_F32)
+    for name, ref in (("RNS_C_SIGMA", RC.C_SIGMA), ("RNS_C_MAINV", RC.C_MAINV),
+                      ("RNS_C_PMAINV", RC.C_PMAINV), ("RNS_C_MAMOD", RC.C_MAMOD),
+                      ("RNS_C_MAINV_MBINV", RC.C_MAINV_MBINV),
+                      ("RNS_C_PMAINV_MBINV", RC.C_PMAINV_MBINV),
+                      ("RNS_C_MBMOD", RC.C_MBMOD), ("RNS_IS_A", RC.IS_A),
+                      ("RNS_MA_MODP", RC.MA_MODP_ROW)):
+        assert np.array_equal(tile(name), ref.astype(np.int64)), name
+    # the two extension blocks: every row that can be nonzero, and nothing else
+    assert np.array_equal(arrs["RNS_T1A"], RC.T1[RC.A_LO:RC.A_HI, :RC.SUB])
+    assert np.array_equal(arrs["RNS_T2B"], RC.T2[RC.B_LO:RC.B_HI, :RC.SUB])
+    blk = RC.T1[:RC.SUB, :RC.SUB].copy()
+    blk[RC.A_LO:RC.A_HI] = 0
+    assert not blk.any()
+    blk = RC.T2[:RC.SUB, :RC.SUB].copy()
+    blk[RC.B_LO:RC.B_HI] = 0
+    assert not blk.any()
+    assert np.array_equal(RC.T1[RC.SUB:, RC.SUB:], RC.T1[:RC.SUB, :RC.SUB])
+    biases = kernel_tables.static_biases()
+    for key, name in (("cyc", "RNS_CYC_BIAS"), ("mul", "RNS_MUL_BIAS")):
+        assert len(biases[key]) == 12
+        want = np.stack([RC.p_mult_row(k)[:RC.SUB] for k in biases[key]])
+        assert np.array_equal(arrs[name], want), name
+    for name, value in (("RNS_NCH", RC.NCH), ("RNS_ALPHA_T", RC.ALPHA_T),
+                        ("RNS_BETA_T", RC.BETA_T), ("RNS_B_LO", RC.B_LO)):
+        assert f"#define {name} {value}\n" in kernel_tables.header_text()
+
+
+def test_static_biases_match_redc_stack():
+    """The header's bias multiples are the ones redc_stack applies: biasing
+    by them by hand and reducing gives the squaring's and product's rows."""
+    a = torch.from_numpy(cyclotomic_rows(2, 0xE3))
+    b = torch.from_numpy(cyclotomic_rows(2, 0xE4))
+    biases = kernel_tables.static_biases()
+    for terms, ks, want in ((tower._cyc_square_terms(a), biases["cyc"],
+                             tower.cyclotomic_square(a)),
+                            (tower._mul_terms(a, b), biases["mul"], tower.mul(a, b))):
+        biased = [r.bias(k) if k else r for r, k in zip(terms, ks)]
+        assert all(r.vlo >= 0 for r in biased)
+        assert all(k == 0 or r.vlo + (k - 1) * fp.P < 0 for r, k in zip(terms, ks))
+        assert torch.equal(fp.redc(fp.merged(biased, torch.stack(
+            [r.ch for r in biased], dim=-2))), want)
+
+
+_FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "plonky2_bls12_381_pairing_tpu")
+
+
+def test_port_imports_nothing_of_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in _FORBIDDEN, (path, name)
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cyc_exp_kernel_matches_plain(cuda):
+    a = torch.from_numpy(cyclotomic_rows(6, 0xE5)).to(cuda)
+    kernels.reset_launches()
+    got = kernels.cyc_exp(a, _GS_SEGMENTS)
+    assert kernels.launches["cyc_exp"] == 1
+    assert torch.equal(got, kernels.cyc_exp_plain(a, _GS_SEGMENTS))
+
+
+@pytest.mark.gpu
+def test_pow_kernel_matches_plain(cuda):
+    a = torch.from_numpy(fp_rows(40, 0xE6)).to(cuda)
+    kernels.reset_launches()
+    got = kernels.pow_static_fused(a, rm.P - 2)
+    assert kernels.launches["pow_static"] == 1
+    assert torch.equal(got, fp.pow_static(a, rm.P - 2))
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_check_their_inputs(cuda):
+    a = torch.zeros((4, 12, RC.LANES), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.cyc_exp(a.to(torch.int64), _GS_SEGMENTS)
+    with pytest.raises(ValueError):
+        kernels.cyc_exp(a[..., :64], _GS_SEGMENTS)
+    with pytest.raises(ValueError):
+        kernels.cyc_exp(a[::2], _GS_SEGMENTS)
+    with pytest.raises(ValueError):
+        kernels.pow_static_fused(a[:, :, :100], rm.P - 2)
