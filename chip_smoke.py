@@ -1,18 +1,27 @@
-"""Drive the PyTorch port's pairing on one CUDA card and hold it to its
-references.
+"""Drive the PyTorch port's pairing paths on one CUDA card and hold them to
+their references.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from csrc/ and report nvcc's resource use;
-  2. run each kernel on the card at the shapes the pairing gives it and hold
-     it bit for bit to its plain PyTorch version; time both;
-  3. run `pairing` at B = 2048 over distinct points k*G1, k*G2 (two of them
-     at infinity) with the launch counters reset just before; hold all
-     2048 outputs to the exact-integer oracle (utils/refmodel.py, in a process
-     pool started at the beginning) and the frozen vectors of
-     tests/vectors/pairing_kat.json; check the launch counts; time pairings/s;
-  4. profile one pairing call: device-busy share and the top kernels.
+  2. run each kernel on the card at the shapes the paths give it and hold it
+     bit for bit to its plain PyTorch version; time both, and count the
+     kernel's bound from the inputs;
+  3. drive the three paths at B = 2048 over distinct points k*G1, k*G2 (two
+     of them at infinity), the launch counters reset just before each and
+     checked just after:
+       `pairing` (fused prepare+Miller): all 2048 outputs against the
+         exact-integer oracle (utils/refmodel.py, in a process pool started
+         at the beginning) and the frozen vectors of
+         tests/vectors/pairing_kat.json;
+       `multi_pairing` with one term (split prepare, the miller_run kernel):
+         row for row the output of `pairing`;
+       `pairing_check` with two terms: [P, -P] x [Q, Q] true everywhere,
+         [P, P] x [Q, Q] true only where an input is at infinity; and a small
+         `multi_pairing` batch of unrelated points against the oracle;
+     and time each;
+  4. profile one call of each path: device-busy share and the top kernels.
 The second-to-last lines are the card's name and power limit and a JSON
 object with each kernel's numbers; the last line is
 {"ok": true, "device": {...}}.
@@ -35,7 +44,7 @@ import torch
 
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
-from plonky2_bls12_381_pairing_torch.models.schedule import _GS_SEGMENTS
+from plonky2_bls12_381_pairing_torch.models.schedule import _DO_SQUARE, _GS_SEGMENTS
 from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernels, tower
 from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
@@ -43,8 +52,10 @@ from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "pairing_kat.json"
 TPU_KERNELS = "plonky2_bls12_381_pairing_tpu/ops/rns/pallas.py"
 PORT_CSRC = "plonky2_bls12_381_pairing_torch/csrc"
-#: pairings per call: the JAX package's batch per chip on its main path
+#: pairings per call and per term: the JAX package's batch per chip
 BATCH = 2048
+#: batch of the two-term multi_pairing held to the oracle
+SMALL = 16
 
 # Peak rates of one H100 SXM at its full 700 W limit (NVIDIA data sheet):
 # HBM at 3.35 TB/s; int32 multiply-adds on 64 INT32 lanes per SM x 132 SMs at
@@ -63,6 +74,10 @@ REDC_OPS = 2 * (31 * 33 + 31 * 32) + 5 * 63
 #: channel products (one per lane) of a Granger-Scott squaring (9 Fq2
 #: products of 3 each, 12 lifts) and of a full Fq12 product (18 Fq2 products)
 CYC_SQ_PRODUCTS, FQ12_MUL_PRODUCTS = 9 * 3 + 12, 18 * 3
+#: of a complex squaring (two Fq6 products of 6 Fq2 products), of the sparse
+#: product mul_by_014 (5 + 3 + 5 Fq2 products) and of the Miller step's
+#: coefficient scaling
+FQ12_SQ_PRODUCTS, M014_PRODUCTS, ELL_SCALE_PRODUCTS = 12 * 3, 13 * 3, 4
 
 
 def cyc_exp_ops(elements: int, segments) -> int:
@@ -71,6 +86,25 @@ def cyc_exp_ops(elements: int, segments) -> int:
     per_sq = 12 * REDC_OPS + CYC_SQ_PRODUCTS * 63
     per_mul = 12 * REDC_OPS + FQ12_MUL_PRODUCTS * 63
     return elements * (squares * per_sq + muls * per_mul)
+
+
+def tower_op_ops(elements: int, redc_rows: int, products: int) -> int:
+    return elements * (redc_rows * REDC_OPS + products * 63)
+
+
+def miller_ops(elements: int, flags) -> int:
+    """Per step a 4-row and a 12-row REDC with the scaling's and the sparse
+    product's lane products; per set flag a 12-row REDC with a squaring's."""
+    steps, squares = len(flags), int(sum(flags))
+    return (steps * tower_op_ops(elements, 4 + 12, ELL_SCALE_PRODUCTS + M014_PRODUCTS)
+            + squares * tower_op_ops(elements, 12, FQ12_SQ_PRODUCTS))
+
+
+def nbytes(*tensors) -> int:
+    """Bytes a kernel must move for these operands: the storage each one
+    spans (a broadcast operand is read once), once."""
+    return sum(t.untyped_storage().nbytes() if t.numel() and 0 in t.stride()
+               else t.numel() * t.element_size() for t in tensors)
 
 
 def pow_steps(exponent: int) -> int:
@@ -103,24 +137,30 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_kernel(fn, reps: int) -> float:
-    """Median milliseconds of one call, from CUDA events around each call."""
-    fn()
+def time_kernel(fn, reps: int, batch: int = 1) -> float:
+    """Median milliseconds of one call, from CUDA events around `batch` calls
+    (fn takes the call's index). With batch > 1 the stream is first held busy
+    for about 10 ms so that the host has enqueued the whole batch before its
+    first kernel starts: the events then time the kernels and not the host."""
+    fn(0)
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if batch > 1:
+            torch.cuda._sleep(int(0.01 * CLOCK_HZ))
         start.record()
-        fn()
+        for i in range(batch):
+            fn(i)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
-def time_host(fn, reps: int) -> float:
-    """Median milliseconds of one synchronised call, on the host clock."""
+def host_times(fn, reps: int) -> list[float]:
+    """Milliseconds of each of `reps` synchronised calls, on the host clock."""
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -128,7 +168,12 @@ def time_host(fn, reps: int) -> float:
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-    return statistics.median(times)
+    return times
+
+
+def time_host(fn, reps: int) -> float:
+    """Median milliseconds of one synchronised call, on the host clock."""
+    return statistics.median(host_times(fn, reps))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -142,9 +187,31 @@ def random_fq12_rows(rng: np.random.Generator, n: int) -> np.ndarray:
     return fp.encode(ints)
 
 
+def random_fq2_rows(rng: np.random.Generator, n: int, comps: int) -> np.ndarray:
+    """(rows, comps, LANES) stored Fp rows: comps / 2 Fq2 values per element."""
+    ints = np.empty((n, comps), dtype=object)
+    for idx in np.ndindex(ints.shape):
+        ints[idx] = int.from_bytes(rng.bytes(48), "little") % rm.P
+    return fp.encode(ints)
+
+
+def fresh_operands(args: tuple) -> tuple:
+    """A tower op's operands copied into new storage; the three Fq2 operands
+    stay slices of one wider stack, as the paths hand them over."""
+    if len(args) > 3:
+        d = torch.cat(args[1:4], dim=-2)
+        return (args[0].clone(), d[..., 0:2, :], d[..., 2:4, :], d[..., 4:6, :],
+                *args[4:])
+    return tuple(x.clone() for x in args)
+
+
 def oracle_pairing(p: rm.G1Affine, q: rm.G2Affine) -> list[int]:
     """Exact-integer e(P, Q) coefficients (one at an infinity input)."""
     return rm.pairing(p, q).coeffs()
+
+
+def oracle_multi_pairing(p0, q0, p1, q1) -> list[int]:
+    return rm.multi_pairing([(p0, q0), (p1, q1)]).coeffs()
 
 
 def points() -> tuple[list, list]:
@@ -161,7 +228,7 @@ def points() -> tuple[list, list]:
     return ps, qs
 
 
-def profile_call(run) -> None:
+def profile_call(name: str, run) -> dict:
     """Device-busy share of one call and the kernels that take its device
     time, from torch.profiler (CUDA kernel events only)."""
     from torch.autograd import DeviceType
@@ -176,21 +243,66 @@ def profile_call(run) -> None:
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not evs:
-        print("[profile] device time not measured: the profiler saw no CUDA kernels")
-        return
+        print(f"[profile] {name}: device time not measured: the profiler saw no "
+              f"CUDA kernels")
+        return {"device_ms": None, "kernel_launches": None}
     busy = sum(e.self_device_time_total for e in evs) / 1e3
-    print(f"[profile] one call, profiler on: {wall:.1f} ms wall, {busy:.1f} ms of "
-          f"kernels ({100 * busy / wall:.1f} % busy), "
-          f"{sum(e.count for e in evs)} kernel launches")
+    n = sum(e.count for e in evs)
+    print(f"[profile] {name}: one call, profiler on: {wall:.1f} ms wall, {busy:.1f} ms "
+          f"of kernels ({100 * busy / wall:.1f} % busy), {n} kernel launches")
     for e in sorted(evs, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x "
               f"{e.key[:90]}")
+    return {"device_ms": busy, "kernel_launches": n}
 
 
 def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+#: Launches of one call of each path, by kernel (0 where not named). The
+#: final exponentiation: 17 Fq12 products, 1 cyclotomic squaring, the 5
+#: exponentiations and the inverse's Fermat pow.
+_FINAL_EXP = {"fq12_mul": 17, "fq12_cyclotomic_square": 1, "cyc_exp": 5,
+              "pow_static": 1}
+EXPECTED_LAUNCHES = {
+    # fused prepare+Miller: 68 ells, 62 squares
+    "pairing": {**_FINAL_EXP, "fq12_mul_by_014": 68, "fq12_square": 62},
+    # one term: the whole Miller loop is one kernel
+    "multi_pairing_1": {**_FINAL_EXP, "miller_run": 1},
+    # two terms: per uniform step an ell and an ell+square, per squareless
+    # step two ells
+    "pairing_check_2": {**_FINAL_EXP, "fq12_mul_by_014": 62 + 2 * 6,
+                        "fq12_mul_by_014_square": 62},
+}
+
+
+def drive(name: str, run):
+    """One call of a path with the launch counters reset just before and
+    read and checked just after."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    counts = dict(kernels.launches)
+    print(f"[{name}] B={BATCH}: first call {first_s:.2f} s, launches {counts}")
+    want = {k: EXPECTED_LAUNCHES[name].get(k, 0) for k in counts}
+    assert counts == want, (name, counts, want)
+    return out, counts
+
+
+def time_path(name: str, run, card: str, reps: int = 3) -> dict:
+    times = host_times(run, reps)
+    ms = statistics.median(times)
+    rate = BATCH / (ms / 1e3)
+    print(f"[{name}] B={BATCH}: {ms:.1f} ms per call (min {min(times):.1f}, max "
+          f"{max(times):.1f} of {reps}), {rate:.1f} per s on {card}")
+    return {"batch": BATCH, "ms": ms, "ms_min": min(times), "ms_max": max(times),
+            "per_s": rate, "card": card}
 
 
 def main() -> int:
@@ -200,11 +312,24 @@ def main() -> int:
     dev = torch.device("cuda")
     rows = -(-BATCH // RC.PACK)
     card = smi()
+    kern: dict[str, dict] = {}
+
+    def check(name, got, want, shape_note):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        print(f"[{name}] {shape_note} kernel vs plain: max |diff| {err}")
+        assert got.shape == want.shape and err == 0, f"{name} disagrees with its plain version"
+        return err
 
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=os.cpu_count(), mp_context=ctx) as pool:
         ps, qs = points()
+        # unrelated points for the small two-term batch (P_5 at infinity
+        # among them)
+        small = (ps[:SMALL], qs[SMALL:2 * SMALL], ps[2 * SMALL:3 * SMALL],
+                 qs[3 * SMALL:4 * SMALL])
         oracle = pool.map(oracle_pairing, ps, qs, chunksize=16)
+        oracle_small = pool.map(oracle_multi_pairing, *small, chunksize=1)
 
         # -- 1. build ------------------------------------------------------
         t = time.perf_counter()
@@ -216,44 +341,41 @@ def main() -> int:
                     print(f"[build] {name}: {line.strip()}")
         print(f"[card] {card}")
 
-        # -- 2. kernels vs plain at the path's shapes ------------------------
+        # -- 2. kernels vs plain at the paths' shapes -------------------------
         rng = np.random.default_rng(2048)
         f_rows = torch.from_numpy(random_fq12_rows(rng, 2 * rows)).to(dev)
         # the easy part of the final exponentiation maps any f to a
         # cyclotomic element, as on the pairing's path
         t0 = tower.mul(tower.conjugate(f_rows), tower.inv(f_rows))
         cyc_in = tower.mul(tower.frobenius_pow(t0, 2), t0).contiguous()
-        got = kernels.cyc_exp(cyc_in, _GS_SEGMENTS)
-        want = kernels.cyc_exp_plain(cyc_in, _GS_SEGMENTS)
-        torch.cuda.synchronize()
-        cyc_err = max_abs_err(got, want)
-        print(f"[cyc_exp] {tuple(cyc_in.shape)} kernel vs plain: max |diff| {cyc_err}")
-        assert cyc_err == 0, "cyc_exp kernel disagrees with cyc_exp_plain"
-        cyc_ms = time_kernel(lambda: kernels.cyc_exp(cyc_in, _GS_SEGMENTS), 10)
-        cyc_plain_ms = time_host(lambda: kernels.cyc_exp_plain(cyc_in, _GS_SEGMENTS), 2)
+        cyc_err = check("cyc_exp", kernels.cyc_exp(cyc_in, _GS_SEGMENTS),
+                        kernels.cyc_exp_plain(cyc_in, _GS_SEGMENTS), tuple(cyc_in.shape))
         cyc_bound = bound_ms(2 * cyc_in.numel() * 4,
                              cyc_exp_ops(RC.PACK * cyc_in.shape[0], _GS_SEGMENTS))
+        kern["cyc_exp"] = {
+            "source": "cyc_exp.cu", "replaces": 812, "max_abs_err": cyc_err,
+            "ms": time_kernel(lambda i: kernels.cyc_exp(cyc_in, _GS_SEGMENTS), 10),
+            "plain_ms": time_host(lambda: kernels.cyc_exp_plain(cyc_in, _GS_SEGMENTS), 2),
+            "bound": cyc_bound}
 
         e = rm.P - 2
         vals = [int.from_bytes(rng.bytes(48), "little") % rm.P for _ in range(256)]
         vals[3] = vals[200] = vals[201] = 0
         pow_in = torch.from_numpy(fp.encode(vals)).to(dev)
         got = kernels.pow_static_fused(pow_in, e)
-        want = fp.pow_static(pow_in, e)
-        torch.cuda.synchronize()
-        pow_err = max_abs_err(got, want)
-        print(f"[pow_static] {tuple(pow_in.shape)} e=p-2 kernel vs plain: "
-              f"max |diff| {pow_err}")
-        assert pow_err == 0, "pow_static_fused kernel disagrees with pow_static"
+        pow_err = check("pow_static", got, fp.pow_static(pow_in, e),
+                        f"{tuple(pow_in.shape)} e=p-2")
         dec = fp.decode(got)
         assert [dec[i] for i in (3, 200, 201)] == [0, 0, 0], "0 must map to 0"
         assert all(v == 0 or dec[i] * v % rm.P == 1 for i, v in enumerate(vals))
-        pow_ms = time_kernel(lambda: kernels.pow_static_fused(pow_in, e), 20)
-        pow_plain_ms = time_host(lambda: fp.pow_static(pow_in, e), 2)
-        pow_bound = bound_ms(2 * pow_in.numel() * 4, pow_ops(256, e))
+        pow_ms = time_kernel(lambda i: kernels.pow_static_fused(pow_in, e), 20)
+        kern["pow_static"] = {
+            "source": "pow_static.cu", "replaces": 1035, "max_abs_err": pow_err,
+            "ms": pow_ms, "plain_ms": time_host(lambda: fp.pow_static(pow_in, e), 2),
+            "bound": bound_ms(2 * pow_in.numel() * 4, pow_ops(256, e))}
         # what the chain of dependent steps costs: one row alone (one block,
         # no contention) against the latency model
-        pow_one_ms = time_kernel(lambda: kernels.pow_static_fused(pow_in[:1], e), 20)
+        pow_one_ms = time_kernel(lambda i: kernels.pow_static_fused(pow_in[:1], e), 20)
         steps = pow_steps(e)
         print(f"[pow_static] {steps} dependent REDCs: {pow_ms:.3f} ms at "
               f"{tuple(pow_in.shape)}, {pow_one_ms:.3f} ms for one row alone "
@@ -261,18 +383,76 @@ def main() -> int:
               f"{steps * POW_STEP_CYC / CLOCK_HZ * 1e3:.3f} ms "
               f"({POW_STEP_CYC} cycles per step at {CLOCK_HZ / 1e9} GHz)")
 
-        # -- 3. the pairing, end to end --------------------------------------
+        # the five tower ops at (rows, 12, LANES). Each is timed over four
+        # copies of its operands in turn (more than the L2 cache holds
+        # together), 50 calls between two events.
+        g_rows = torch.from_numpy(random_fq12_rows(rng, 2 * rows)).to(dev)
+        d_rows = torch.from_numpy(random_fq2_rows(rng, 2 * rows, 6)).to(dev)
+        d0, d1, d4 = d_rows[..., 0:2, :], d_rows[..., 2:4, :], d_rows[..., 4:6, :]
+        skip_rows = torch.zeros((rows, RC.LANES), dtype=torch.int32, device=dev)
+        skip_rows[2, RC.SUB:] = 1
+        skip_rows[3, :RC.SUB] = 1
+        elements = RC.PACK * rows
+        tower_cases = {
+            "fq12_mul": (tower.mul_plain, (f_rows, g_rows), 12, FQ12_MUL_PRODUCTS),
+            "fq12_square": (tower.square_plain, (f_rows,), 12, FQ12_SQ_PRODUCTS),
+            "fq12_mul_by_014": (tower.mul_by_014_plain, (f_rows, d0, d1, d4), 12,
+                                M014_PRODUCTS),
+            "fq12_mul_by_014_square": (tower.mul_by_014_square_plain,
+                                       (f_rows, d0, d1, d4, skip_rows), 24,
+                                       M014_PRODUCTS + FQ12_SQ_PRODUCTS),
+            "fq12_cyclotomic_square": (tower.cyclotomic_square_plain, (cyc_in,), 12,
+                                       CYC_SQ_PRODUCTS),
+        }
+        for name, (plain, args, redc_rows, products) in tower_cases.items():
+            wrapper = getattr(kernels, name)
+            err = check(name, wrapper(*args), plain(*args), tuple(args[0].shape))
+            if name == "fq12_mul_by_014_square":  # and without the mask
+                err = max(err, check(name, wrapper(*args[:4]), plain(*args[:4]),
+                                     "no skip,"))
+            if name == "fq12_mul":
+                # the stacked tail product of the final exponentiation, one
+                # operand broadcast (stride 0) as the chain's products with one
+                st = torch.stack([f_rows, g_rows, cyc_in, f_rows])
+                one4 = tower.one((4, rows), dev)
+                err = max(err, check(name, wrapper(st, g_rows), plain(st, g_rows),
+                                     f"{tuple(st.shape)} x {tuple(g_rows.shape)}"))
+                err = max(err, check(name, wrapper(st, one4), plain(st, one4),
+                                     f"{tuple(st.shape)} x one (strides {one4.stride()})"))
+            copies = [fresh_operands(args) for _ in range(4)]
+            kern[name] = {
+                "source": "tower_ops.cu", "replaces": 116, "max_abs_err": err,
+                "ms": time_kernel(lambda i: wrapper(*copies[i % 4]), 5, batch=50),
+                "plain_ms": time_host(lambda: plain(*args), 3),
+                "bound": bound_ms(nbytes(*args) + args[0].numel() * 4,
+                                  tower_op_ops(elements, redc_rows, products))}
+
+        # miller_run on the run's own points (two inputs at infinity)
         p_dev = G1Affine.encode(ps, device=dev)
         q_dev = G2Affine.encode(qs, device=dev)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t = time.perf_counter()
-        out = mpr.pairing(p_dev, q_dev)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t
-        counts = dict(kernels.launches)
-        print(f"[pairing] B={BATCH}: first call {first_s:.2f} s, launches {counts}")
-        assert counts == {"cyc_exp": 5, "pow_static": 1}, counts
+        coeffs = mpr.prepare_g2_stepmajor(q_dev)
+        skip = ((p_dev.infinity != 0) | (q_dev.infinity != 0)).to(torch.int32)
+        assert int(skip.sum().item()) == 2 * RC.SUB
+        m_args = (tower.one((rows,), dev), coeffs, p_dev.y, p_dev.x, skip)
+        got = kernels.miller_run(*m_args, _DO_SQUARE)
+        err = check("miller_run", got, kernels.miller_run_plain(*m_args, _DO_SQUARE),
+                    f"coeffs {tuple(coeffs.shape)}")
+        kern["miller_run"] = {
+            "source": "miller.cu", "replaces": 1008, "max_abs_err": err,
+            "ms": time_kernel(lambda i: kernels.miller_run(*m_args, _DO_SQUARE), 5),
+            "plain_ms": time_host(
+                lambda: kernels.miller_run_plain(*m_args, _DO_SQUARE), 2),
+            "bound": bound_ms(nbytes(*m_args) + len(_DO_SQUARE) * 4 + got.numel() * 4,
+                              miller_ops(elements, _DO_SQUARE))}
+        del coeffs, m_args, got
+        for name, k in kern.items():
+            print(f"[{name}] {k['ms']:.4f} ms, plain {k['plain_ms']:.2f} ms, bound "
+                  f"{k['bound'][0]:.4f} ms by {k['bound'][1]}")
+
+        # -- 3. the paths, end to end ----------------------------------------
+        # (a) pairing: fused prepare + Miller loop
+        path_counts = {}
+        out, path_counts["pairing"] = drive("pairing", lambda: mpr.pairing(p_dev, q_dev))
         assert out.shape == (rows, 12, RC.LANES) and out.dtype == torch.int32
 
         got_rows = fp.decode(out)[:BATCH]
@@ -293,26 +473,68 @@ def main() -> int:
         print(f"[pairing] KAT e_chain: {nkat}/{len(kat)}")
         assert nkat == len(kat)
 
-        pairing_ms = time_host(lambda: mpr.pairing(p_dev, q_dev), 3)
-        rate = BATCH / (pairing_ms / 1e3)
-        print(f"[pairing] B={BATCH}: {pairing_ms:.1f} ms per call, "
-              f"{rate:.1f} pairings/s on {card}")
-        print(json.dumps({"pairing": {"batch": BATCH, "ms": pairing_ms,
-                                      "pairings_per_s": rate, "card": card}}))
+        # (b) multi_pairing with one term: split prepare, the miller_run
+        # kernel; the same rows as pairing, hence the oracle's values
+        out1, path_counts["multi_pairing_1"] = drive(
+            "multi_pairing_1", lambda: mpr.multi_pairing([p_dev], [q_dev]))
+        same = torch.equal(out1, out)
+        print(f"[multi_pairing_1] rows identical to pairing's: {same}")
+        assert same, "single-term multi_pairing and pairing give different rows"
+
+        # (c) pairing_check with two terms of B points each
+        n_dev = G1Affine.encode([p.neg() for p in ps], device=dev)
+        ok, path_counts["pairing_check_2"] = drive(
+            "pairing_check_2", lambda: mpr.pairing_check([p_dev, n_dev], [q_dev, q_dev]))
+        ok = ok.reshape(-1)[:BATCH].cpu().numpy()
+        print(f"[pairing_check_2] e(P,Q) e(-P,Q) == 1 on {int(ok.sum())}/{BATCH}")
+        assert ok.all()
+        ok2 = mpr.pairing_check([p_dev, p_dev], [q_dev, q_dev])
+        ok2 = ok2.reshape(-1)[:BATCH].cpu().numpy()
+        print(f"[pairing_check_2] e(P,Q)^2 == 1 only at {np.flatnonzero(ok2).tolist()}")
+        assert np.flatnonzero(ok2).tolist() == [5, 6]
+
+        sp0, sq0, sp1, sq1 = small
+        m2 = mpr.multi_pairing(
+            [G1Affine.encode(sp0, device=dev), G1Affine.encode(sp1, device=dev)],
+            [G2Affine.encode(sq0, device=dev), G2Affine.encode(sq1, device=dev)])
+        got_small = fp.decode(m2)[:SMALL]
+        want_small = list(oracle_small)
+        nsmall = sum(list(got_small[i]) == want_small[i] for i in range(SMALL))
+        print(f"[multi_pairing_2] B={SMALL} unrelated points vs oracle: "
+              f"{nsmall}/{SMALL} bit-exact")
+        assert nsmall == SMALL
+
+        runs = {
+            "pairing": lambda: mpr.pairing(p_dev, q_dev),
+            "multi_pairing_1": lambda: mpr.multi_pairing([p_dev], [q_dev]),
+            "pairing_check_2": lambda: mpr.pairing_check([p_dev, n_dev], [q_dev, q_dev]),
+        }
+        timed = {name: time_path(name, run, card) for name, run in runs.items()}
 
         # -- 4. where the time goes ------------------------------------------
-        profile_call(lambda: mpr.pairing(p_dev, q_dev))
+        for name, run in runs.items():
+            timed[name].update(profile_call(name, run))
+        t = timed["pairing"]
+        print(json.dumps({"pairing": {**t, "pairings_per_s": t["per_s"]}}))
+        print(json.dumps({"pairing_split": {
+            "multi_pairing_1": timed["multi_pairing_1"],
+            "pairing_check_2": timed["pairing_check_2"]}}))
 
+    for name in kernels.launches:
+        assert sum(c[name] for c in path_counts.values()) > 0, (
+            f"no path launched {name}")
+    order = ["cyc_exp", "pow_static", "miller_run", "fq12_mul", "fq12_square",
+             "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square"]
+    assert sorted(order) == sorted(kern) == sorted(kernels.launches)
     report = {"kernels": [
-        {"name": "cyc_exp", "route": "cuda", "source": f"{PORT_CSRC}/cyc_exp.cu",
-         "replaces": f"{TPU_KERNELS}:812", "launches": counts["cyc_exp"],
-         "max_abs_err": cyc_err, "ms": cyc_ms, "plain_ms": cyc_plain_ms,
-         "bound_ms": cyc_bound[0], "bound_by": cyc_bound[1], "library_ms": None},
-        {"name": "pow_static", "route": "cuda", "source": f"{PORT_CSRC}/pow_static.cu",
-         "replaces": f"{TPU_KERNELS}:1035", "launches": counts["pow_static"],
-         "max_abs_err": pow_err, "ms": pow_ms, "plain_ms": pow_plain_ms,
-         "bound_ms": pow_bound[0], "bound_by": pow_bound[1], "library_ms": None},
-    ]}
+        {"name": name, "route": "cuda", "source": f"{PORT_CSRC}/{kern[name]['source']}",
+         "replaces": f"{TPU_KERNELS}:{kern[name]['replaces']}",
+         "launches": sum(c[name] for c in path_counts.values()),
+         "launches_by_path": {p: c[name] for p, c in path_counts.items()},
+         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
+         "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound"][0],
+         "bound_by": kern[name]["bound"][1], "library_ms": None}
+        for name in order]}
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -122,17 +122,18 @@ __device__ __forceinline__ F2 f2_lift(F2 x, const Lane& c) {
 // Shared memory of one block. t1/t2 hold the base-extension block rows that
 // can be nonzero (T1 from base-A rows, T2 from base-B rows); buf carries one
 // value per lane for the cross-lane sums; fix carries each slot's alpha or
-// beta (the value of the sum at the slot's ALPHA_LANE).
-template <int K>
+// beta (the value of the sum at the slot's ALPHA_LANE). KS is the largest
+// number of stacked reductions the block runs on it.
+template <int KS>
 struct Smem {
   int t1[NCH * SUB];
   int t2[NCH * SUB];
-  int buf[K * LANES];
-  int fix[K * PACK];
+  int buf[KS * LANES];
+  int fix[KS * PACK];
 };
 
-template <int K>
-__device__ __forceinline__ void load_tables(Smem<K>& s) {
+template <int KS>
+__device__ __forceinline__ void load_tables(Smem<KS>& s) {
   for (int i = threadIdx.x; i < NCH * SUB; i += blockDim.x) {
     s.t1[i] = RNS_T1A[i / SUB][i % SUB];
     s.t2[i] = RNS_T2B[i / SUB][i % SUB];
@@ -142,9 +143,12 @@ __device__ __forceinline__ void load_tables(Smem<K>& s) {
 // K stacked reductions: x[k] holds the lane's residue of X_k (value in
 // [0, MA*p)); on return, the canonical residue of the stored element
 // X_k * MA^-1 + q p (fp.redc, steps 1-4). Every thread of the block must call
-// it: it synchronises four times.
-template <int K>
-__device__ __forceinline__ void redc(int (&x)[K], const Lane& c, Smem<K>& s) {
+// it: it synchronises four times. Reductions of any K may follow one
+// another on one buffer: each shared word is rewritten only after a barrier
+// that follows its last read.
+template <int K, int KS>
+__device__ __forceinline__ void redc(int (&x)[K], const Lane& c, Smem<KS>& s) {
+  static_assert(K <= KS, "the shared buffer is too small for this stack");
   const int lane = threadIdx.x;
   const int slot = lane / SUB;
   const int l = lane % SUB;

@@ -2,7 +2,7 @@
 
 Both packages store a field element as the same packed int32 residue rows
 (rns_constants.py), so the JAX package's encoded G1Affine/G2Affine/Fq12
-arrays, handed over as numpy, become this package's tensors unchanged, and
+arrays and line-coefficient tensors, handed over as numpy, become this package's tensors unchanged, and
 the two compute the same rows from the same inputs.
 """
 
@@ -36,6 +36,12 @@ def g2_from_numpy(x, y, infinity, device=None) -> G2Affine:
 def fq12_from_numpy(a, device=None) -> torch.Tensor:
     """Encoded Fq12 rows (..., 12, LANES)."""
     return _tensor(a, device)
+
+
+def coeffs_from_numpy(coeffs, device=None) -> torch.Tensor:
+    """Step-major line coefficients (68, rows..., 3, 2, LANES), as
+    prepare_g2_stepmajor returns them in either package."""
+    return _tensor(coeffs, device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

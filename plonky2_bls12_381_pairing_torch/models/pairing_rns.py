@@ -1,8 +1,18 @@
 """Batched BLS12-381 optimal-ate pairing on the RNS arithmetic tier (the JAX
-package's models/pairing_rns.py, main path): the fused prepare+Miller loop,
-then the final exponentiation whose five exponentiations by |BLS_X| run the
-whole-exponent Granger-Scott kernel and whose one Fq12 inverse ends in the
-Fermat-pow kernel (ops/rns/kernels.py).
+package's models/pairing_rns.py).
+
+  pairing(P, Q)                   the fused prepare+Miller loop, then the
+                                  final exponentiation;
+  multi_pairing / pairing_check   the split form: prepare_g2_stepmajor, the
+                                  Miller loop over T terms' line coefficients
+                                  (one term: the whole-loop kernel
+                                  kernels.miller_run), one final exponentiation
+                                  of the product.
+
+The final exponentiation's five exponentiations by |BLS_X| run the
+whole-exponent Granger-Scott kernel and its one Fq12 inverse ends in the
+Fermat-pow kernel; the Fq12 products and squarings of every path are the
+tower kernels (ops/rns/kernels.py).
 
 Stored rows are bit-identical to the JAX package's for the same inputs where
 the algorithm is the same (the Miller loop, the Granger-Scott exponentiation).
@@ -15,13 +25,115 @@ import torch
 from .. import constants as C
 from ..ops.rns import fp, kernels, tower
 from ..ops.rns.lines import (G1Affine, G2Affine, G2Projective, addition_step,
-                             doubling_step)
-from .schedule import _FUSED_RUNS, _FUSED_TAIL, _GS_SEGMENTS
+                             doubling_step, scale_terms)
+from .schedule import (_DO_SQUARE, _FUSED_RUNS, _FUSED_TAIL, _GS_SEGMENTS,
+                       _MILLER_RUNS, _RUNS, NUM_COEFFS)
+
+
+# ---------------------------------------------------------------------------
+# G2 preparation
+# ---------------------------------------------------------------------------
+
+
+def prepare_g2_stepmajor(q: G2Affine) -> torch.Tensor:
+    """Line-coefficient tensor in step-major layout (68, ..., 3, 2, LANES),
+    the layout the Miller loop reads step by step. Infinity inputs are
+    replaced by the generator and masked out inside the Miller loop."""
+    q = G2Affine.generator_like(q).conditional_select(q.infinity, q)
+    r = G2Projective.from_affine(q)
+    triples = []
+    for n_dbl, has_add in _RUNS:
+        for _ in range(n_dbl):
+            r, cs = doubling_step(r)
+            triples.append(torch.stack(cs, dim=-3))
+        if has_add:
+            r, cs = addition_step(r, q)
+            triples.append(torch.stack(cs, dim=-3))
+    assert len(triples) == NUM_COEFFS
+    return torch.stack(triples)
+
+
+def prepare_g2(q: G2Affine) -> torch.Tensor:
+    """Batch-major line-coefficient tensor (..., 68, 3, 2, LANES)."""
+    return torch.movedim(prepare_g2_stepmajor(q), 0, -4)
 
 
 # ---------------------------------------------------------------------------
 # Miller loop
 # ---------------------------------------------------------------------------
+
+
+def _ell_scaled(f: torch.Tensor, triple: torch.Tensor, py: fp.R, px: fp.R,
+                skip: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """One term's ell with the coefficient scaling done here (c0*P.y, c1*P.x
+    in one 4-row REDC) and the identity-select for infinity terms: f is left
+    unchanged where skip is set. With square=True the accumulator is squared
+    afterwards, ell and square as one tower op.
+    triple: (..., 3, 2, LANES) raw line triple; skip: packed lane mask."""
+    sc = fp.redc_cat(scale_terms(triple[..., 0, :, :], triple[..., 1, :, :], py, px))
+    # rows 0:2 = c0*P.y, rows 2:4 = c1*P.x
+    d0, d1, d4 = triple[..., 2, :, :], sc[..., 2:4, :], sc[..., 0:2, :]
+    if square:
+        return tower.mul_by_014_square(f, d0, d1, d4, skip)
+    return tower.select(skip, f, tower.mul_by_014(f, d0, d1, d4))
+
+
+def miller_steps_raw(f: torch.Tensor, raw_list: list, pys: list, pxs: list,
+                     skips: list) -> torch.Tensor:
+    """The Miller accumulation over step-major RAW triples of T terms, scaling
+    each step's coefficients inside the step (4 extra REDC rows per term
+    instead of a scaled copy of the 68-step tensor). In a uniform step the
+    last term's ell and the square are one tower op."""
+    last = len(raw_list) - 1
+
+    def step(f, j, square):
+        for t in range(last + 1):
+            f = _ell_scaled(f, raw_list[t][j], pys[t], pxs[t], skips[t],
+                            square=square and t == last)
+        return f
+
+    j = 0
+    for n_uniform, has_break in _MILLER_RUNS:
+        for _ in range(n_uniform):
+            f = step(f, j, True)
+            j += 1
+        if has_break:
+            f = step(f, j, False)
+            j += 1
+    assert j == NUM_COEFFS
+    return f
+
+
+def miller_loop(ps, prepared_stepmajor, q_infinities=None) -> torch.Tensor:
+    """Product of the Miller loops of T terms, in one accumulator.
+
+    ps: G1Affine or list; prepared_stepmajor: matching (68, ..., 3, 2, LANES)
+    tensors from prepare_g2_stepmajor; q_infinities: the G2 points' packed
+    infinity masks (None: no G2 point at infinity). Returns f:
+    (..., 12, LANES). One term with one row axis runs as kernels.miller_run
+    (one kernel on a card)."""
+    if not isinstance(ps, (list, tuple)):
+        ps = [ps]
+        prepared_stepmajor = [prepared_stepmajor]
+        q_infinities = [q_infinities]
+    if q_infinities is None:
+        q_infinities = [None] * len(ps)
+    skips = []
+    for p, qinf in zip(ps, q_infinities):
+        inf = p.infinity != 0
+        skips.append((inf if qinf is None else inf | (qinf != 0)).to(torch.int32))
+    rows = ps[0].infinity.shape[:-1]  # infinity is a packed lane mask
+    f = tower.one(rows, ps[0].y.device)
+    if len(ps) == 1 and len(rows) == 1:
+        f = kernels.miller_run(f, prepared_stepmajor[0], ps[0].y, ps[0].x,
+                               skips[0], _DO_SQUARE)
+    else:
+        pys = [fp.wrap(p.y[..., None, :]) for p in ps]
+        pxs = [fp.wrap(p.x[..., None, :]) for p in ps]
+        f = miller_steps_raw(f, prepared_stepmajor, pys, pxs, skips)
+    if C.BLS_X_IS_NEGATIVE:
+        f = tower.conjugate(f)
+    return f
 
 
 def miller_loop_fused(p: G1Affine, q: G2Affine) -> torch.Tensor:
@@ -144,3 +256,16 @@ def pairing(p: G1Affine, q: G2Affine) -> torch.Tensor:
     """Batched full pairing e(P, Q) -> (rows, 12, LANES) Gt elements, on the
     device the points lie on (G1Affine.encode / G2Affine.encode choose it)."""
     return final_exponentiation(miller_loop_fused(p, q))
+
+
+def multi_pairing(ps: list, qs: list) -> torch.Tensor:
+    """prod_t e(P_t, Q_t) per batch element: the T terms' Miller loops share
+    one accumulator and one final exponentiation."""
+    prepared = [prepare_g2_stepmajor(q) for q in qs]
+    f = miller_loop(ps, prepared, [q.infinity for q in qs])
+    return final_exponentiation(f)
+
+
+def pairing_check(ps: list, qs: list) -> torch.Tensor:
+    """(rows, PACK) bools: prod_t e(P_t, Q_t) == 1 per packed element."""
+    return tower.is_one(multi_pairing(ps, qs))

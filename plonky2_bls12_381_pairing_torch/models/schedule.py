@@ -5,7 +5,8 @@ schedule helpers of models/pairing_rns.py).
 Three independent derivations of the same schedule are cross-checked here
 at import: the iteration-level segmentation (_SEGMENTS), the per-triple flag
 tables (_IS_ADD/_DO_SQUARE), and the grouped form that the fused Miller loop
-runs (_FUSED_RUNS/_FUSED_TAIL)."""
+runs (_FUSED_RUNS/_FUSED_TAIL). _MILLER_RUNS groups the same flags for the
+split Miller loop."""
 
 from __future__ import annotations
 
@@ -110,6 +111,27 @@ def _fused_groups():
 
 
 _FUSED_RUNS, _FUSED_TAIL = _fused_groups()
+
+
+def _miller_runs():
+    """Runs of uniform ell+square steps of the split Miller loop, broken at
+    the 6 squareless triples (the 5 pre-addition doubling triples and the
+    final doubling; _DO_SQUARE)."""
+    runs = []  # (n_uniform_steps, has_squareless_step_after)
+    n = 0
+    for sq in _DO_SQUARE:
+        if sq:
+            n += 1
+        else:
+            runs.append((n, True))
+            n = 0
+    if n:
+        runs.append((n, False))
+    assert sum(r[0] for r in runs) + sum(r[1] for r in runs) == NUM_COEFFS
+    return runs
+
+
+_MILLER_RUNS = _miller_runs()
 
 #: Set-bit positions of |BLS_X|, ascending (6 bits incl. the leading one).
 _X_SET_BITS = [i for i in range(C.BLS_X.bit_length()) if (C.BLS_X >> i) & 1]

@@ -18,19 +18,33 @@ import numpy as np
 import torch
 
 from ... import rns_constants as RC
-from . import fp, tower
+from . import fp, lines, tower
 
 _SLOT = slice(0, RC.SUB)
 
 
 def static_biases() -> dict[str, list[int]]:
-    """Bias multiple k of each of the 12 REDC inputs of one Granger-Scott
-    squaring ("cyc") and one Fq12 product ("mul")."""
+    """Bias multiple k of each REDC input of one Granger-Scott squaring
+    ("cyc"), Fq12 product ("mul"), complex squaring ("sq") and sparse product
+    mul_by_014 ("m014"), 12 each, and of the 4 rows of the Miller step's
+    coefficient scaling ("ell": c0*P.y, c1*P.x)."""
     z = torch.zeros((1, 12, RC.LANES), dtype=torch.int32)
+    d = z[:, :2]
+    w = fp.wrap(z[:, :1])
     return {
         "cyc": [fp.nonneg_multiple(r) for r in tower._cyc_square_terms(z)],
         "mul": [fp.nonneg_multiple(r) for r in tower._mul_terms(z, z)],
+        "sq": [fp.nonneg_multiple(r) for r in tower._square_terms(z)],
+        "m014": [fp.nonneg_multiple(r) for r in tower._mul014_terms(z, d, d, d)],
+        # each scaling term is a 2-row R with one bound for both rows
+        "ell": [fp.nonneg_multiple(r) for r in lines.scale_terms(d, d, w, w)
+                for _ in range(2)],
     }
+
+
+#: C name of each bias table.
+BIAS_TABLES = {"cyc": "RNS_CYC_BIAS", "mul": "RNS_MUL_BIAS", "sq": "RNS_SQ_BIAS",
+               "m014": "RNS_M014_BIAS", "ell": "RNS_ELL_BIAS"}
 
 
 def tables() -> dict[str, np.ndarray]:
@@ -52,9 +66,9 @@ def tables() -> dict[str, np.ndarray]:
         # from base-A rows, T2 from base-B rows
         "RNS_T1A": RC.T1[RC.A_LO:RC.A_HI, _SLOT],
         "RNS_T2B": RC.T2[RC.B_LO:RC.B_HI, _SLOT],
-        "RNS_CYC_BIAS": np.stack([RC.p_mult_row(k)[_SLOT] for k in biases["cyc"]]),
-        "RNS_MUL_BIAS": np.stack([RC.p_mult_row(k)[_SLOT] for k in biases["mul"]]),
     }
+    for key, name in BIAS_TABLES.items():
+        t[name] = np.stack([RC.p_mult_row(k)[_SLOT] for k in biases[key]])
     return {name: np.ascontiguousarray(v) for name, v in t.items()}
 
 
@@ -85,13 +99,15 @@ def header_text() -> str:
         f"#define RNS_ALPHA_LANE {RC.ALPHA_LANE}",
         f"#define RNS_ALPHA_T {RC.ALPHA_T}",
         f"#define RNS_BETA_T {RC.BETA_T}",
-        "// RNS_CYC_BIAS / RNS_MUL_BIAS: residues of k*p, k the nonneg bias",
-        "// multiple of each REDC input of a squaring / product.",
+        "// RNS_*_BIAS: residues of k*p, k the nonneg bias multiple of each REDC",
+        "// input of the formula (kernel_tables.static_biases).",
+        "// The tables are indexed by lane, a different entry for every thread",
+        "// of a warp, so they lie in device memory, not in constant memory.",
         "",
     ]
     for name, arr in tables().items():
         ctype = "float" if arr.dtype == np.float32 else "int"
         dims = "".join(f"[{d}]" for d in arr.shape)
-        out.append(f"__constant__ {ctype} {name}{dims} = {_c_values(arr)};")
+        out.append(f"__device__ const {ctype} {name}{dims} = {_c_values(arr)};")
         out.append("")
     return "\n".join(out)

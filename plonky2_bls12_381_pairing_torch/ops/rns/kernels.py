@@ -1,23 +1,32 @@
 """The RNS tier's hand-written CUDA kernels (the JAX package's
-ops/rns/pallas.py on the pairing's path), their plain PyTorch versions, the
+ops/rns/pallas.py on the pairing's paths), their plain PyTorch versions, the
 nvcc build and the ctypes binding.
 
-  cyc_exp(a, segments)            <- pallas.cyc_exp_run   (csrc/cyc_exp.cu)
+  cyc_exp(a, segments)            <- pallas.cyc_exp_run      (csrc/cyc_exp.cu)
   pow_static_fused(a, exponent)   <- pallas.pow_static_fused (csrc/pow_static.cu)
+  miller_run(f0, coeffs, py, px, skip, flags)
+                                  <- pallas.miller_run       (csrc/miller.cu)
+  fq12_mul, fq12_square, fq12_mul_by_014, fq12_mul_by_014_square,
+  fq12_cyclotomic_square          <- pallas.fused_op over the tower formulas
+                                     (csrc/tower_ops.cu)
 
 Each wrapper runs its plain version for a tensor on the CPU and launches its
 kernel for a tensor on a CUDA device; there is no fallback between the two.
-`launches` counts kernel launches per wrapper.
+`launches` counts kernel launches per wrapper. The plain versions call the
+plain tower formulas (tower.<op>_plain), never the dispatching ones, so a
+plain run on a card launches none of these kernels.
 
 The kernels are built at first use with nvcc into shared libraries with a
-plain C interface, in build/torch_kernels/<hash>/ at the repository root,
-keyed by a hash of the CUDA sources and the generated table header.
+plain C interface, one per source, in build/torch_kernels/<hash>/ at the
+repository root, keyed by a hash of the CUDA sources and the generated table
+header.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -25,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-from . import fp, kernel_tables, tower
+from . import fp, kernel_tables, lines, tower
 
 LANES = fp.LANES
 
@@ -33,11 +42,31 @@ _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-#: kernel name -> (source, C entry point)
+_PTR, _INT, _STRIDE = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: kernel name -> (source, C entry point, its argument types). A tensor
+#: operand with a row stride is (_PTR, _STRIDE); every entry ends in the
+#: output pointer, the row count and the stream, but for cyc_exp and
+#: pow_static, which take (a, out, rows, int array, its length, stream).
 _KERNELS = {
-    "cyc_exp": ("cyc_exp.cu", "cyc_exp_launch"),
-    "pow_static": ("pow_static.cu", "pow_static_launch"),
+    "cyc_exp": ("cyc_exp.cu", "cyc_exp_launch",
+                [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
+    "pow_static": ("pow_static.cu", "pow_static_launch",
+                   [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
+    "miller_run": ("miller.cu", "miller_run_launch",
+                   [_PTR, _STRIDE, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
+                    _PTR, _INT, _PTR]),
+    "fq12_mul": ("tower_ops.cu", "fq12_mul_launch",
+                 [_PTR, _STRIDE] * 2 + [_PTR, _INT, _PTR]),
+    "fq12_square": ("tower_ops.cu", "fq12_square_launch",
+                    [_PTR, _STRIDE, _PTR, _INT, _PTR]),
+    "fq12_mul_by_014": ("tower_ops.cu", "fq12_mul_by_014_launch",
+                        [_PTR, _STRIDE] * 4 + [_PTR, _INT, _PTR]),
+    "fq12_mul_by_014_square": ("tower_ops.cu", "fq12_mul_by_014_square_launch",
+                               [_PTR, _STRIDE] * 5 + [_PTR, _INT, _PTR]),
+    "fq12_cyclotomic_square": ("tower_ops.cu", "fq12_cyclotomic_square_launch",
+                               [_PTR, _STRIDE, _PTR, _INT, _PTR]),
 }
+_SOURCES = sorted({src for src, _, _ in _KERNELS.values()})
 
 #: Kernel launches per wrapper since the last reset_launches().
 launches = {name: 0 for name in _KERNELS}
@@ -60,21 +89,46 @@ def cyc_exp_plain(a: torch.Tensor, segments) -> torch.Tensor:
     acc = a
     for n_sq, mul_after in segments:
         for _ in range(n_sq):
-            acc = tower.cyclotomic_square(acc)
+            acc = tower.cyclotomic_square_plain(acc)
         if mul_after:
-            acc = tower.mul(acc, a)
+            acc = tower.mul_plain(acc, a)
     return acc
 
 
-# The plain version of pow_static_fused is fp.pow_static.
+# The plain version of pow_static_fused is fp.pow_static; those of the tower
+# kernels are tower.mul_plain, square_plain, mul_by_014_plain,
+# mul_by_014_square_plain and cyclotomic_square_plain.
+
+
+def miller_run_plain(f0: torch.Tensor, coeffs_stepmajor: torch.Tensor,
+                     py: torch.Tensor, px: torch.Tensor, skip: torch.Tensor,
+                     do_square_flags) -> torch.Tensor:
+    """The single-term Miller accumulation over step-major raw line triples:
+    per step the coefficient scaling (c0*P.y, c1*P.x, one 4-row REDC), the
+    sparse product with the identity-select on skip, and the square where the
+    step's flag is set."""
+    pyw = fp.wrap(py[..., None, :])
+    pxw = fp.wrap(px[..., None, :])
+    f = f0
+    for triple, sq in zip(coeffs_stepmajor, do_square_flags):
+        sc = fp.redc_cat(lines.scale_terms(triple[..., 0, :, :], triple[..., 1, :, :],
+                                           pyw, pxw))
+        g = tower.mul_by_014_plain(f, triple[..., 2, :, :], sc[..., 2:4, :],
+                                   sc[..., 0:2, :])
+        f = tower.select(skip, f, g)
+        if sq:
+            f = tower.square_plain(f)
+    return f
 
 
 # ---------------------------------------------------------------------------
 # Build and binding
 # ---------------------------------------------------------------------------
 
-_LIBS: dict[str, ctypes.CDLL] = {}
-#: nvcc's report (ptxas register and shared-memory use) of the last build.
+#: kernel name -> its bound C entry point
+_LIBS: dict = {}
+#: nvcc's report (ptxas register and shared-memory use) of the last build, by
+#: source.
 build_log: dict[str, str] = {}
 
 
@@ -87,8 +141,8 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Build both kernels (in parallel, one nvcc each) unless the build
-    directory for the current sources already holds them; load them."""
+    """Build every source (in parallel, one nvcc each) unless the build
+    directory for the current sources already holds its library; load them."""
     header = kernel_tables.header_text()
     h = hashlib.sha256(header.encode())
     for src in sorted(_CSRC.iterdir()):
@@ -102,30 +156,29 @@ def build() -> Path:
         tmp.write_text(header)
         os.replace(tmp, hdr)
     procs = {}
-    for name, (src, _) in _KERNELS.items():
-        lib = out_dir / f"lib{name}.so"
-        if name in _LIBS or lib.exists():
+    for src in _SOURCES:
+        lib = out_dir / f"lib{Path(src).stem}.so"
+        if lib.exists():
             continue
-        tmp = out_dir / f"lib{name}.so.{os.getpid()}"
+        tmp = out_dir / f"{lib.name}.{os.getpid()}"
         cmd = [_nvcc(), *_NVCC_FLAGS, "-I", str(out_dir), "-I", str(_CSRC),
                "-o", str(tmp), str(_CSRC / src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib)
-    for name, (proc, tmp, lib) in procs.items():
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, lib)
+    for src, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
-        build_log[name] = log
+        build_log[src] = log
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         os.replace(tmp, lib)
-    for name, (_, entry) in _KERNELS.items():
-        if name not in _LIBS:
-            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-            fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _LIBS[name] = fn
+    libs = {src: ctypes.CDLL(str(out_dir / f"lib{Path(src).stem}.so"))
+            for src in _SOURCES}
+    for name, (src, entry, argtypes) in _KERNELS.items():
+        fn = getattr(libs[src], entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = fn
     return out_dir
 
 
@@ -135,7 +188,7 @@ def _entry(name: str):
     return _LIBS[name]
 
 
-def _check(a: torch.Tensor, tail: tuple) -> None:
+def _check(a: torch.Tensor, tail: tuple, contiguous: bool = True) -> None:
     if a.device.type != "cuda":
         raise ValueError(f"expected a CPU or CUDA tensor, got {a.device}")
     if a.dtype != torch.int32:
@@ -143,7 +196,7 @@ def _check(a: torch.Tensor, tail: tuple) -> None:
     if tuple(a.shape[a.dim() - len(tail):]) != tail:
         raise ValueError(f"expected shape (..., {', '.join(map(str, tail))}), "
                          f"got {tuple(a.shape)}")
-    if not a.is_contiguous():
+    if contiguous and not a.is_contiguous():
         raise ValueError("expected a contiguous tensor")
 
 
@@ -158,16 +211,71 @@ def _int_arg(key, values, device: torch.device) -> torch.Tensor:
     return _ARGS[k]
 
 
-def _launch(name: str, a: torch.Tensor, rows: int, arg: torch.Tensor,
-            n_arg: int) -> torch.Tensor:
+def _call(name: str, device: torch.device, *args) -> None:
+    """Launch kernel `name` on `device`'s current stream (the entry's last
+    argument) and count it."""
     fn = _entry(name)
-    out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), out.data_ptr(), rows, arg.data_ptr(), n_arg, stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
+
+
+def _launch(name: str, a: torch.Tensor, rows: int, arg: torch.Tensor,
+            n_arg: int) -> torch.Tensor:
+    out = torch.empty_like(a)
+    _call(name, a.device, a.data_ptr(), out.data_ptr(), rows, arg.data_ptr(), n_arg)
+    return out
+
+
+def _row_view(t: torch.Tensor, batch: tuple, tail: tuple) -> tuple[torch.Tensor, int]:
+    """`t` (batch..., *tail), broadcast over `batch`, as the kernels read an
+    operand: a (rows, *tail) tensor to keep alive and its row stride in
+    elements. The tail must be dense and the batch axes must merge into one
+    stride, as they do for a contiguous tensor, for a slice of the tail's
+    first axis of one, and for a broadcast over the whole batch (stride 0).
+    Any other layout is copied first (one read and one write of the
+    operand)."""
+    t = t.expand(*batch, *tail)
+    k = len(tail)
+    dense = t.stride()[t.dim() - k:] == tuple(
+        math.prod(tail[i + 1:]) for i in range(k))
+    v = None
+    if dense:
+        try:
+            v = t.view(math.prod(batch), *tail)
+        except RuntimeError:  # the batch axes do not merge
+            pass
+    if v is None:
+        v = t.contiguous().view(math.prod(batch), *tail)
+    return v, v.stride(0)
+
+
+def _rows(t: torch.Tensor, batch: tuple, tail: tuple) -> tuple[torch.Tensor, int]:
+    _check(t, tail, contiguous=False)
+    return _row_view(t, batch, tail)
+
+
+def _tower_op(name: str, a: torch.Tensor, operands=(), skip=None) -> torch.Tensor:
+    """Launch one tower-op kernel: `a` and the (tensor, tail) operands share
+    their (broadcast) batch axes, which are flattened into rows; the output
+    is (batch..., 12, LANES)."""
+    ops = [(a, (12, LANES)), *operands]
+    if skip is not None:
+        ops.append((skip, (LANES,)))
+    batch = torch.broadcast_shapes(*(t.shape[:t.dim() - len(tail)] for t, tail in ops))
+    out = torch.empty((*batch, 12, LANES), dtype=torch.int32, device=a.device)
+    views, args = [], []
+    for t, tail in ops:
+        if t.device != a.device:
+            raise ValueError(f"operands on {a.device} and {t.device}")
+        v, stride = _rows(t, batch, tail)
+        views.append(v)  # alive until the launch is enqueued
+        args += [v.data_ptr(), stride]
+    if name == "fq12_mul_by_014_square" and skip is None:
+        args += [None, 0]
+    _call(name, a.device, *args, out.data_ptr(), math.prod(batch))
     return out
 
 
@@ -200,3 +308,71 @@ def pow_static_fused(a: torch.Tensor, exponent: int) -> torch.Tensor:
     arg = _int_arg(("bits", exponent), bits or [0], a.device)
     rows = a.numel() // LANES
     return _launch("pow_static", a, rows, arg, len(bits))
+
+
+def miller_run(f0: torch.Tensor, coeffs_stepmajor: torch.Tensor, py: torch.Tensor,
+               px: torch.Tensor, skip: torch.Tensor, do_square_flags) -> torch.Tensor:
+    """The full single-term Miller accumulation (one ell per line triple, a
+    square after the steps whose flag is set) from the accumulator f0.
+    f0: (rows, 12, LANES), any row stride; coeffs_stepmajor: (steps, rows, 3,
+    2, LANES); py, px, skip: (rows, LANES); all int32. The conjugation for a
+    negative loop parameter is the caller's."""
+    flags = tuple(int(bool(v)) for v in do_square_flags)
+    if len(flags) != coeffs_stepmajor.shape[0]:
+        raise ValueError("one square flag per step")
+    if f0.device.type == "cpu":
+        return miller_run_plain(f0, coeffs_stepmajor, py, px, skip, flags)
+    rows = py.shape[0]
+    _check(coeffs_stepmajor, (rows, 3, 2, LANES))
+    for t in (py, px, skip):
+        _check(t, (rows, LANES))
+    f0v, stride = _rows(f0, (rows,), (12, LANES))
+    out = torch.empty((rows, 12, LANES), dtype=torch.int32, device=f0.device)
+    _call("miller_run", f0.device, f0v.data_ptr(), stride, coeffs_stepmajor.data_ptr(),
+          py.data_ptr(), px.data_ptr(), skip.data_ptr(),
+          _int_arg(("flags", flags), flags, f0.device).data_ptr(), len(flags),
+          out.data_ptr(), rows)
+    return out
+
+
+_FQ2 = (2, LANES)
+
+
+def fq12_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b for Fq12 rows (..., 12, LANES) int32 (tower.mul)."""
+    if a.device.type == "cpu":
+        return tower.mul_plain(a, b)
+    return _tower_op("fq12_mul", a, [(b, (12, LANES))])
+
+
+def fq12_square(a: torch.Tensor) -> torch.Tensor:
+    """a^2 (tower.square)."""
+    if a.device.type == "cpu":
+        return tower.square_plain(a)
+    return _tower_op("fq12_square", a)
+
+
+def fq12_cyclotomic_square(a: torch.Tensor) -> torch.Tensor:
+    """a^2 for cyclotomic a (tower.cyclotomic_square)."""
+    if a.device.type == "cpu":
+        return tower.cyclotomic_square_plain(a)
+    return _tower_op("fq12_cyclotomic_square", a)
+
+
+def fq12_mul_by_014(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
+                    d4: torch.Tensor) -> torch.Tensor:
+    """a * ((d0 + d1 v) + (d4 v) w), d0/d1/d4 stored Fq2 (..., 2, LANES)
+    (tower.mul_by_014)."""
+    if a.device.type == "cpu":
+        return tower.mul_by_014_plain(a, d0, d1, d4)
+    return _tower_op("fq12_mul_by_014", a, [(d0, _FQ2), (d1, _FQ2), (d4, _FQ2)])
+
+
+def fq12_mul_by_014_square(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
+                           d4: torch.Tensor, skip=None) -> torch.Tensor:
+    """square(select(skip, a, mul_by_014(a, d0, d1, d4))), skip a packed lane
+    mask (..., LANES) or None (tower.mul_by_014_square)."""
+    if a.device.type == "cpu":
+        return tower.mul_by_014_square_plain(a, d0, d1, d4, skip)
+    return _tower_op("fq12_mul_by_014_square", a,
+                     [(d0, _FQ2), (d1, _FQ2), (d4, _FQ2)], skip)

@@ -146,6 +146,13 @@ def _slice2(s: torch.Tensor, i: int) -> torch.Tensor:
     return s[..., 2 * i : 2 * i + 2, :]
 
 
+def scale_terms(c0: torch.Tensor, c1: torch.Tensor, py: R, px: R) -> list[R]:
+    """The ell coefficient scaling before its REDC: c0*P.y and c1*P.x, two
+    (..., 2, LANES) products (py, px: R wraps of the G1 coordinates,
+    (..., 1, LANES))."""
+    return [fp.mul_rr(fp.wrap(c0), py), fp.mul_rr(fp.wrap(c1), px)]
+
+
 def doubling_step(r: G2Projective, scale: tuple | None = None
                   ) -> tuple[G2Projective, tuple]:
     """Point doubling + tangent line (three stacked REDCs). Returns
@@ -203,10 +210,8 @@ def doubling_step(r: G2Projective, scale: tuple | None = None
     if scale is None:
         youts = fp.redc_stack([yout_w[0], yout_w[1]])
         return G2Projective(xouts, youts, zouts), (c0, c1, c2)
-    py, px = scale
-    r0 = fp.mul_rr(fp.wrap(c0), py)  # (..., 2, LANES)
-    r1 = fp.mul_rr(fp.wrap(c1), px)
-    s3 = fp.redc_cat([fp.row1(yout_w[0]), fp.row1(yout_w[1]), r0, r1])
+    s3 = fp.redc_cat([fp.row1(yout_w[0]), fp.row1(yout_w[1]),
+                      *scale_terms(c0, c1, *scale)])
     youts, sc0, sc1 = s3[..., 0:2, :], s3[..., 2:4, :], s3[..., 4:6, :]
     return G2Projective(xouts, youts, zouts), (sc0, sc1, c2)
 
@@ -283,10 +288,7 @@ def addition_step(r: G2Projective, q: G2Affine, scale: tuple | None = None
                             c1_w[0], c1_w[1]])
         youts, c0, c1 = _slice2(sE, 0), _slice2(sE, 1), _slice2(sE, 2)
         return G2Projective(xouts, youts, zouts), (c0, c1, c2)
-    py, px = scale
-    c0s, c1s = _slice2(sD, 4), _slice2(sD, 5)
-    r0 = fp.mul_rr(fp.wrap(c0s), py)
-    r1 = fp.mul_rr(fp.wrap(c1s), px)
-    sE = fp.redc_cat([fp.row1(yout_w[0]), fp.row1(yout_w[1]), r0, r1])
+    sE = fp.redc_cat([fp.row1(yout_w[0]), fp.row1(yout_w[1]),
+                      *scale_terms(_slice2(sD, 4), _slice2(sD, 5), *scale)])
     youts, sc0, sc1 = sE[..., 0:2, :], sE[..., 2:4, :], sE[..., 4:6, :]
     return G2Projective(xouts, youts, zouts), (sc0, sc1, c2)

@@ -9,6 +9,11 @@ bit-identical.
 
 Element layout: Fq12 = (..., 12, LANES) int32 in flat tower order
 [c0.c0.c0, c0.c0.c1, c0.c1.c0, ..., c1.c2.c1].
+
+mul, square, mul_by_014, mul_by_014_square and cyclotomic_square go through
+their wrappers in ops/rns/kernels.py (the JAX package's fused_op sites): the
+plain formula `<op>_plain` for a tensor on the CPU, one CUDA kernel for a
+tensor on a card.
 """
 
 from __future__ import annotations
@@ -160,9 +165,21 @@ def decode(a):
     return out if shape else out[()]
 
 
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """mask: packed lane mask (..., LANES): each element's 64-lane slot
+    selects on its own."""
+    return torch.where(mask[..., None, :] != 0, a, b)
+
+
 def is_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., PACK) bools per packed element."""
     return fp.is_equal(a, b).all(dim=-2)  # reduce the 12-comp axis
+
+
+def _kernels():
+    from . import kernels  # imported late: kernels imports this module
+
+    return kernels
 
 
 def is_one(a: torch.Tensor) -> torch.Tensor:
@@ -183,13 +200,17 @@ def _mul_terms(a: torch.Tensor, b: torch.Tensor) -> list[R]:
     return out0 + out1
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Karatsuba over Fq6 with w^2 = v."""
+def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return fp.redc_stack(_mul_terms(a, b))
 
 
-def square(a: torch.Tensor) -> torch.Tensor:
-    """Complex squaring: c0 = (a0+a1)(a0 + v a1) - ab - v ab, c1 = 2 ab."""
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Karatsuba over Fq6 with w^2 = v."""
+    return _kernels().fq12_mul(a, b)
+
+
+def _square_terms(a: torch.Tensor) -> list[R]:
+    """The 12 lazy outputs of the complex squaring, before their REDC."""
     a0, a1 = _comps(a, 0, 6), _comps(a, 6, 12)
     s = _canon_list(_list_add(a0, a1))
     # t = a0 + v*a1 with v*a1 = (xi*(a1c2), a1c0, a1c1); negatives are free.
@@ -199,30 +220,61 @@ def square(a: torch.Tensor) -> torch.Tensor:
     st = _fq6_mul(s, t)
     out0 = _list_sub(_list_sub(st, ab), _fq6_nonres(ab))
     out1 = [x.scale(2) for x in ab]
-    return fp.redc_stack(out0 + out1)
+    return out0 + out1
 
 
-def _pack_d(a: torch.Tensor, d0, d1, d4) -> torch.Tensor:
-    tgt = a[..., :2, :].shape
-    return torch.cat([x.expand(tgt) for x in (d0, d1, d4)], dim=-2)
+def square_plain(a: torch.Tensor) -> torch.Tensor:
+    return fp.redc_stack(_square_terms(a))
 
 
-def mul_by_014(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
-               d4: torch.Tensor) -> torch.Tensor:
-    """Sparse product with (d0 + d1 v) + (d4 v) w; d0/d1/d4: (..., 2, LANES)
-    stored Fq2 operands."""
-    d = _pack_d(a, d0, d1, d4)
+def square(a: torch.Tensor) -> torch.Tensor:
+    """Complex squaring: c0 = (a0+a1)(a0 + v a1) - ab - v ab, c1 = 2 ab."""
+    return _kernels().fq12_square(a)
+
+
+def _mul014_terms(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
+                  d4: torch.Tensor) -> list[R]:
+    """The 12 lazy outputs of the sparse product, before their REDC."""
     a0, a1 = _comps(a, 0, 6), _comps(a, 6, 12)
-    d00, d01 = fp.wrap(d[..., 0, :]), fp.wrap(d[..., 1, :])
-    d10, d11 = fp.wrap(d[..., 2, :]), fp.wrap(d[..., 3, :])
-    d40, d41 = fp.wrap(d[..., 4, :]), fp.wrap(d[..., 5, :])
+    d00, d01 = fp.wrap(d0[..., 0, :]), fp.wrap(d0[..., 1, :])
+    d10, d11 = fp.wrap(d1[..., 0, :]), fp.wrap(d1[..., 1, :])
+    d40, d41 = fp.wrap(d4[..., 0, :]), fp.wrap(d4[..., 1, :])
     asum = _canon_list(_list_add(a0, a1))
     aa = _fq6_mul_by_01(a0, d00, d01, d10, d11)
     bb = _fq6_mul_by_1(a1, d40, d41)
     t1 = _fq6_mul_by_01(asum, d00, d01, d10 + d40, d11 + d41)
     out0 = _list_add(_fq6_nonres(bb), aa)
     out1 = _list_sub(_list_sub(t1, aa), bb)
-    return fp.redc_stack(out0 + out1)
+    return out0 + out1
+
+
+def mul_by_014_plain(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
+                     d4: torch.Tensor) -> torch.Tensor:
+    return fp.redc_stack(_mul014_terms(a, d0, d1, d4))
+
+
+def mul_by_014(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
+               d4: torch.Tensor) -> torch.Tensor:
+    """Sparse product with (d0 + d1 v) + (d4 v) w; d0/d1/d4: (..., 2, LANES)
+    stored Fq2 operands."""
+    return _kernels().fq12_mul_by_014(a, d0, d1, d4)
+
+
+def mul_by_014_square_plain(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
+                            d4: torch.Tensor, skip=None) -> torch.Tensor:
+    f = mul_by_014_plain(a, d0, d1, d4)
+    if skip is not None:
+        f = select(skip, a, f)
+    return square_plain(f)
+
+
+def mul_by_014_square(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
+                      d4: torch.Tensor, skip=None) -> torch.Tensor:
+    """square(mul_by_014(a, d)): the Miller step's ell and square back to
+    back. With skip (a packed lane mask (..., LANES)) the elements it marks
+    keep a through the sparse product, as the Miller loop's identity-select
+    for infinity terms does: square(select(skip, a, mul_by_014(a, d)))."""
+    return _kernels().fq12_mul_by_014_square(a, d0, d1, d4, skip)
 
 
 def conjugate(a: torch.Tensor) -> torch.Tensor:
@@ -270,9 +322,13 @@ def _cyc_square_terms(a: torch.Tensor) -> list[R]:
             nz2[0], nz2[1], nz1[0], nz1[1], nz5[0], nz5[1]]
 
 
+def cyclotomic_square_plain(a: torch.Tensor) -> torch.Tensor:
+    return fp.redc_stack(_cyc_square_terms(a))
+
+
 def cyclotomic_square(a: torch.Tensor) -> torch.Tensor:
     """Granger-Scott squaring of a cyclotomic element."""
-    return fp.redc_stack(_cyc_square_terms(a))
+    return _kernels().fq12_cyclotomic_square(a)
 
 
 # -- Frobenius --------------------------------------------------------------

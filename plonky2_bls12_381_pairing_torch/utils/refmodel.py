@@ -708,6 +708,14 @@ def pairing(p: G1Affine, q: G2Affine) -> Fq12:
     return final_exponentiation(multi_miller_loop([(p, prepare_g2(q))]))
 
 
+def multi_pairing(terms: list[tuple[G1Affine, G2Affine]]) -> Fq12:
+    """Product of pairings with one shared Miller loop + one final exponentiation."""
+    prepared = [(p, prepare_g2(q)) for p, q in terms if not (p.infinity or q.infinity)]
+    if not prepared:
+        return Fq12.one()
+    return final_exponentiation(multi_miller_loop(prepared))
+
+
 # ---------------------------------------------------------------------------
 # Randomness helpers for tests
 # ---------------------------------------------------------------------------

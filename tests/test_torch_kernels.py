@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
-from plonky2_bls12_381_pairing_torch.models.schedule import _GS_SEGMENTS
-from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernel_tables, kernels, tower
-from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine
+from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
+from plonky2_bls12_381_pairing_torch.models.schedule import _DO_SQUARE, _GS_SEGMENTS
+from plonky2_bls12_381_pairing_torch.ops.rns import (fp, kernel_tables, kernels, lines,
+                                                     tower)
+from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 
 torch.set_num_threads(1)
@@ -43,6 +45,32 @@ def fp_rows(n: int, seed: int) -> np.ndarray:
     return fp.encode(xs)
 
 
+def fq12_rows(n: int, seed: int) -> np.ndarray:
+    r = random.Random(seed)
+    return tower.encode([rm.rand_fq12(r) for _ in range(n)])
+
+
+def fq2_rows(n: int, seed: int) -> np.ndarray:
+    r = random.Random(seed)
+    return fp.encode(np.array([[r.randrange(rm.P), r.randrange(rm.P)]
+                               for _ in range(n)], dtype=object))
+
+
+def miller_inputs(n: int, seed: int, device):
+    """n point pairs (the second G1 point and the third G2 point at infinity)
+    as miller_run takes them: f0, step-major coefficients, py, px, skip."""
+    r = random.Random(seed)
+    ps = [rm.rand_g1(r) for _ in range(n)]
+    qs = [rm.rand_g2(r) for _ in range(n)]
+    ps[1] = rm.G1Affine(0, 0, True)
+    qs[2 % n] = rm.G2Affine(rm.Fq2(0, 0), rm.Fq2(0, 0), True)
+    p = G1Affine.encode(ps, device=device)
+    q = G2Affine.encode(qs, device=device)
+    skip = ((p.infinity != 0) | (q.infinity != 0)).to(torch.int32)
+    f0 = tower.one(p.infinity.shape[:-1], device)
+    return f0, mpr.prepare_g2_stepmajor(q), p.y, p.x, skip
+
+
 def test_cpu_wrappers_run_plain_versions():
     a = torch.from_numpy(cyclotomic_rows(2, 0xE1))
     segs = ((2, True), (1, True), (3, False))
@@ -57,9 +85,54 @@ def test_cpu_wrappers_run_plain_versions():
     assert torch.equal(got, want)
     x = torch.from_numpy(fp_rows(4, 0xE2))
     assert torch.equal(kernels.pow_static_fused(x, 0xD201), fp.pow_static(x, 0xD201))
-    assert kernels.launches == {"cyc_exp": 0, "pow_static": 0}
+    f, g = (torch.from_numpy(fq12_rows(2, s)) for s in (0xE7, 0xE8))
+    d0, d1, d4 = (torch.from_numpy(fq2_rows(2, s)) for s in (0xE9, 0xEA, 0xEB))
+    skip = torch.zeros((1, RC.LANES), dtype=torch.int32)
+    skip[0, RC.SUB:] = 1
+    assert torch.equal(kernels.fq12_mul(f, g), tower.mul_plain(f, g))
+    assert torch.equal(kernels.fq12_square(f), tower.square_plain(f))
+    assert torch.equal(kernels.fq12_cyclotomic_square(a),
+                       tower.cyclotomic_square_plain(a))
+    assert torch.equal(kernels.fq12_mul_by_014(f, d0, d1, d4),
+                       tower.mul_by_014_plain(f, d0, d1, d4))
+    assert torch.equal(kernels.fq12_mul_by_014_square(f, d0, d1, d4, skip),
+                       tower.mul_by_014_square_plain(f, d0, d1, d4, skip))
+    # the dispatching tower ops are those wrappers
+    assert torch.equal(tower.mul(f, g), tower.mul_plain(f, g))
+    assert torch.equal(tower.square(f), tower.square_plain(f))
+    args = miller_inputs(2, 0xEC, "cpu")
+    assert torch.equal(kernels.miller_run(*args, _DO_SQUARE),
+                       kernels.miller_run_plain(*args, _DO_SQUARE))
+    assert set(kernels.launches) == {
+        "cyc_exp", "pow_static", "miller_run", "fq12_mul", "fq12_square",
+        "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square"}
+    assert all(n == 0 for n in kernels.launches.values())
     with pytest.raises(ValueError):
         kernels.pow_static_fused(x, 0)
+
+
+def test_row_views_of_kernel_operands():
+    """What the tower kernels read in place (one row stride) and what is
+    copied first."""
+    tail = (12, RC.LANES)
+    one = tower.one((6,), "cpu")                      # broadcast over the batch
+    v, stride = kernels._row_view(one, (6,), tail)
+    assert stride == 0 and v.data_ptr() == one.data_ptr()
+    v, stride = kernels._row_view(one[0], (4, 6), tail)  # broadcast over two axes
+    assert stride == 0 and v.shape == (24, *tail)
+    wide = torch.arange(6 * 4 * RC.LANES, dtype=torch.int32).reshape(6, 4, RC.LANES)
+    part = wide[..., 2:4, :]                          # a slice of a wider stack
+    v, stride = kernels._row_view(part, (6,), (2, RC.LANES))
+    assert stride == 4 * RC.LANES and v.data_ptr() == part.data_ptr()
+    assert torch.equal(v, part)
+    full = torch.arange(6 * 12 * RC.LANES, dtype=torch.int32).reshape(6, *tail)
+    v, stride = kernels._row_view(full, (6,), tail)
+    assert stride == 12 * RC.LANES and v.data_ptr() == full.data_ptr()
+    v, stride = kernels._row_view(full, (4, 6), tail)  # partly broadcast: a copy
+    assert stride == 12 * RC.LANES and v.data_ptr() != full.data_ptr()
+    assert torch.equal(v.view(4, 6, *tail), full.expand(4, 6, *tail))
+    v, stride = kernels._row_view(wide[..., ::2], (6,), (4, RC.SUB))  # tail not dense
+    assert stride == 4 * RC.SUB and torch.equal(v, wide[..., ::2])
 
 
 def test_wrappers_refuse_other_devices():
@@ -71,6 +144,19 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         kernels.pow_static_fused(torch.empty((1, RC.LANES), dtype=torch.int32,
                                              device="meta"), rm.P - 2)
+    f = torch.empty((1, 12, RC.LANES), dtype=torch.int32, device="meta")
+    d = torch.empty((1, 2, RC.LANES), dtype=torch.int32, device="meta")
+    row = torch.empty((1, RC.LANES), dtype=torch.int32, device="meta")
+    for call in (lambda: kernels.fq12_mul(f, f), lambda: kernels.fq12_square(f),
+                 lambda: kernels.fq12_cyclotomic_square(f),
+                 lambda: kernels.fq12_mul_by_014(f, d, d, d),
+                 lambda: kernels.fq12_mul_by_014_square(f, d, d, d, row),
+                 lambda: tower.mul(f, f),
+                 lambda: kernels.miller_run(
+                     f, torch.empty((68, 1, 3, 2, RC.LANES), dtype=torch.int32,
+                                    device="meta"), row, row, row, _DO_SQUARE)):
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -85,7 +171,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def _header_arrays(text: str) -> dict:
     out = {}
-    pat = re.compile(r"__constant__ (int|float) (\w+)((?:\[\d+\])+) = \{([^}]*)\};")
+    pat = re.compile(r"__device__ const (int|float) (\w+)((?:\[\d+\])+) = \{([^}]*)\};")
     for ctype, name, dims, body in pat.findall(text):
         shape = tuple(int(d) for d in re.findall(r"\d+", dims))
         vals = [v.strip() for v in body.replace("\n", " ").split(",") if v.strip()]
@@ -122,8 +208,9 @@ def test_kernel_header_matches_tables():
     assert not blk.any()
     assert np.array_equal(RC.T1[RC.SUB:, RC.SUB:], RC.T1[:RC.SUB, :RC.SUB])
     biases = kernel_tables.static_biases()
-    for key, name in (("cyc", "RNS_CYC_BIAS"), ("mul", "RNS_MUL_BIAS")):
-        assert len(biases[key]) == 12
+    assert sorted(kernel_tables.BIAS_TABLES) == ["cyc", "ell", "m014", "mul", "sq"]
+    for key, name in kernel_tables.BIAS_TABLES.items():
+        assert len(biases[key]) == (4 if key == "ell" else 12)
         want = np.stack([RC.p_mult_row(k)[:RC.SUB] for k in biases[key]])
         assert np.array_equal(arrs[name], want), name
     for name, value in (("RNS_NCH", RC.NCH), ("RNS_ALPHA_T", RC.ALPHA_T),
@@ -136,10 +223,20 @@ def test_static_biases_match_redc_stack():
     by them by hand and reducing gives the squaring's and product's rows."""
     a = torch.from_numpy(cyclotomic_rows(2, 0xE3))
     b = torch.from_numpy(cyclotomic_rows(2, 0xE4))
+    d0, d1, d4 = (torch.from_numpy(fq2_rows(2, s)) for s in (0xED, 0xEE, 0xEF))
     biases = kernel_tables.static_biases()
-    for terms, ks, want in ((tower._cyc_square_terms(a), biases["cyc"],
-                             tower.cyclotomic_square(a)),
-                            (tower._mul_terms(a, b), biases["mul"], tower.mul(a, b))):
+    # the scaling's two terms are 2-row values: one row each for the check
+    ell = [fp.R(r.ch[..., i, :], r.lo, r.hi, r.vlo, r.vhi)
+           for r in lines.scale_terms(d0, d1, fp.wrap(d4[..., :1, :]),
+                                      fp.wrap(d4[..., 1:, :])) for i in range(2)]
+    for terms, ks, want in (
+            (tower._cyc_square_terms(a), biases["cyc"], tower.cyclotomic_square(a)),
+            (tower._mul_terms(a, b), biases["mul"], tower.mul(a, b)),
+            (tower._square_terms(a), biases["sq"], tower.square(a)),
+            (tower._mul014_terms(a, d0, d1, d4), biases["m014"],
+             tower.mul_by_014(a, d0, d1, d4)),
+            (ell, biases["ell"], fp.redc_cat(lines.scale_terms(
+                d0, d1, fp.wrap(d4[..., :1, :]), fp.wrap(d4[..., 1:, :]))))):
         biased = [r.bias(k) if k else r for r, k in zip(terms, ks)]
         assert all(r.vlo >= 0 for r in biased)
         assert all(k == 0 or r.vlo + (k - 1) * fp.P < 0 for r, k in zip(terms, ks))
@@ -196,6 +293,51 @@ def test_pow_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("op", ["fq12_mul", "fq12_square", "fq12_cyclotomic_square",
+                                "fq12_mul_by_014", "fq12_mul_by_014_square"])
+def test_tower_kernel_matches_plain(cuda, op):
+    """Each per-op kernel against its plain formula, with operands the paths
+    hand it: a broadcast one, slices of a wider stack, two batch axes."""
+    f = torch.from_numpy(fq12_rows(12, 0xF0)).to(cuda).view(2, 3, 12, RC.LANES)
+    g = torch.from_numpy(cyclotomic_rows(12, 0xF1)).to(cuda).view(2, 3, 12, RC.LANES)
+    d = torch.from_numpy(np.concatenate(
+        [fq2_rows(12, s) for s in (0xF2, 0xF3, 0xF4)], axis=-2)).to(cuda)
+    d = d.view(2, 3, 6, RC.LANES)
+    d0, d1, d4 = d[..., 0:2, :], d[..., 2:4, :], d[..., 4:6, :]
+    skip = torch.zeros((2, 3, RC.LANES), dtype=torch.int32, device=cuda)
+    skip[0, 1, RC.SUB:] = 1
+    skip[1, 2, :RC.SUB] = 1
+    cases = {
+        "fq12_mul": [((f, g), tower.mul_plain), ((f, tower.one((2, 3), cuda)),
+                                                 tower.mul_plain),
+                     ((f[0, 1], g), tower.mul_plain)],
+        "fq12_square": [((f,), tower.square_plain)],
+        "fq12_cyclotomic_square": [((g,), tower.cyclotomic_square_plain)],
+        "fq12_mul_by_014": [((f, d0, d1, d4), tower.mul_by_014_plain)],
+        "fq12_mul_by_014_square": [((f, d0, d1, d4), tower.mul_by_014_square_plain),
+                                   ((f, d0, d1, d4, skip),
+                                    tower.mul_by_014_square_plain)],
+    }[op]
+    kernels.reset_launches()
+    for args, plain in cases:
+        got = getattr(kernels, op)(*args)
+        want = plain(*args)
+        assert got.shape == want.shape and torch.equal(got, want)
+    assert kernels.launches[op] == len(cases)
+    assert sum(kernels.launches.values()) == len(cases)
+
+
+@pytest.mark.gpu
+def test_miller_run_kernel_matches_plain(cuda):
+    args = miller_inputs(10, 0xF5, cuda)
+    kernels.reset_launches()
+    got = kernels.miller_run(*args, _DO_SQUARE)
+    assert kernels.launches["miller_run"] == 1
+    assert sum(kernels.launches.values()) == 1
+    assert torch.equal(got, kernels.miller_run_plain(*args, _DO_SQUARE))
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_check_their_inputs(cuda):
     a = torch.zeros((4, 12, RC.LANES), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
@@ -206,3 +348,9 @@ def test_kernel_wrappers_check_their_inputs(cuda):
         kernels.cyc_exp(a[::2], _GS_SEGMENTS)
     with pytest.raises(ValueError):
         kernels.pow_static_fused(a[:, :, :100], rm.P - 2)
+    with pytest.raises(TypeError):
+        kernels.fq12_mul(a, a.to(torch.int64))
+    with pytest.raises(ValueError):
+        kernels.fq12_mul_by_014(a, a[:, :3], a[:, :2], a[:, :2])
+    with pytest.raises(ValueError):
+        kernels.fq12_square(a.cpu().to(cuda)[..., :64])
