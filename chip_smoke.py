@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; nothing is caught):
   2. run each kernel on the card at the shapes the paths give it and hold it
      bit for bit to its plain PyTorch version; time both, and count the
      kernel's bound from the inputs;
-  3. drive the three paths at B = 2048 over distinct points k*G1, k*G2 (two
+  3. drive the paths at B = 2048 over distinct points k*G1, k*G2 (two
      of them at infinity), the launch counters reset just before each and
      checked just after:
        `pairing` (fused prepare+Miller): all 2048 outputs against the
@@ -20,6 +20,11 @@ Phases (any failure exits non-zero; nothing is caught):
        `pairing_check` with two terms: [P, -P] x [Q, Q] true everywhere,
          [P, P] x [Q, Q] true only where an input is at infinity; and a small
          `multi_pairing` batch of unrelated points against the oracle;
+       `pairing(impl="karabina")` (the Karabina final exponentiation): all
+         2048 outputs against the oracle, and the frozen vectors; then the
+         final exponentiation of that batch's Miller-loop output under each
+         of the six forms of its powers, each equal in value to the default
+         form on all 2048 (the Granger-Scott forms row for row);
      and time each;
   4. profile one call of each path: device-busy share and the top kernels.
 The second-to-last lines are the card's name and power limit and a JSON
@@ -44,7 +49,8 @@ import torch
 
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
-from plonky2_bls12_381_pairing_torch.models.schedule import _DO_SQUARE, _GS_SEGMENTS
+from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _GS_SEGMENTS,
+                                                             _KARA_SEGMENTS)
 from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernels, tower
 from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
@@ -78,6 +84,14 @@ CYC_SQ_PRODUCTS, FQ12_MUL_PRODUCTS = 9 * 3 + 12, 18 * 3
 #: product mul_by_014 (5 + 3 + 5 Fq2 products) and of the Miller step's
 #: coefficient scaling
 FQ12_SQ_PRODUCTS, M014_PRODUCTS, ELL_SCALE_PRODUCTS = 12 * 3, 13 * 3, 4
+#: of a Karabina squaring (4 Fq2 products, 8 lifts), and of one snapshot's
+#: decompression: its REDC rows (4 numerator candidates, the norm, the
+#: inverse over 4, the scaled conjugate, g1, g0) and its products (3 Fq2
+#: products and 2 lifts for the numerators, 2 for the norm, 1 and 2 for the
+#: scalings, an Fq2 product for g1, 3 Fq2 products and the lifted one for g0)
+KARA_SQ_PRODUCTS = 4 * 3 + 8
+DECOMPRESS_REDC_ROWS = 4 + 1 + 1 + 2 + 2 + 2
+DECOMPRESS_PRODUCTS = (3 * 3 + 2) + 2 + 1 + 2 + 3 + (3 * 3 + 1)
 
 
 def cyc_exp_ops(elements: int, segments) -> int:
@@ -90,6 +104,23 @@ def cyc_exp_ops(elements: int, segments) -> int:
 
 def tower_op_ops(elements: int, redc_rows: int, products: int) -> int:
     return elements * (redc_rows * REDC_OPS + products * 63)
+
+
+def kara_chain_ops(elements: int, squarings: int) -> int:
+    """An 8-row REDC and four Fq2 products per compressed squaring."""
+    return squarings * tower_op_ops(elements, 8, KARA_SQ_PRODUCTS)
+
+
+def kara_full_ops(elements: int, segments) -> int:
+    """The least work for the value: the chain, the decompression of one
+    snapshot per segment, the snapshots' product, and the inversion of all
+    norms of the call shared by Montgomery's trick (three Fp products per
+    norm around one Fermat power)."""
+    n = len(segments)
+    return (kara_chain_ops(elements, sum(segments))
+            + n * tower_op_ops(elements, DECOMPRESS_REDC_ROWS, DECOMPRESS_PRODUCTS)
+            + 3 * (n * elements - 1) * (REDC_OPS + 63) + pow_ops(1, rm.P - 2)
+            + (n - 1) * tower_op_ops(elements, 12, FQ12_MUL_PRODUCTS))
 
 
 def miller_ops(elements: int, flags) -> int:
@@ -262,12 +293,34 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-#: Launches of one call of each path, by kernel (0 where not named). The
-#: final exponentiation: 17 Fq12 products, 1 cyclotomic squaring, the 5
-#: exponentiations and the inverse's Fermat pow.
-_FINAL_EXP = {"fq12_mul": 17, "fq12_cyclotomic_square": 1, "cyc_exp": 5,
-              "pow_static": 1}
+def final_exp_launches(impl: str) -> dict:
+    """Launches of one final exponentiation, by kernel: 17 Fq12 products, 1
+    cyclotomic squaring and the inverse's Fermat pow, and five times what an
+    exponentiation by |x| launches in the form `impl`: one kernel; or 6 runs
+    of squarings and 5 products; or the Karabina chain (one kernel, or 6
+    runs), the shared inversion's Fermat pow and the 3 stacked products of
+    the snapshots' tree."""
+    per_exp = {
+        "segments": {"cyc_exp": 1},
+        "cond": {"cyc_exp_cond": 1},
+        "runs": {"cyc_square_run": len(_GS_SEGMENTS),
+                 "fq12_mul": sum(1 for _, m in _GS_SEGMENTS if m)},
+        "karabina": {"kara_exp": 1, "fq12_mul": 3, "pow_static": 1},
+        "karabina_runs": {"kara_square_run": len(_KARA_SEGMENTS), "fq12_mul": 3,
+                          "pow_static": 1},
+        "karabina_full": {"kara_full": 1},
+    }[impl]
+    out = {"fq12_mul": 17, "fq12_cyclotomic_square": 1, "pow_static": 1}
+    for name, n in per_exp.items():
+        out[name] = out.get(name, 0) + 5 * n
+    return out
+
+
+_FINAL_EXP = final_exp_launches("segments")
 EXPECTED_LAUNCHES = {
+    **{f"final_exp_{impl}": final_exp_launches(impl) for impl in mpr.EXP_IMPLS},
+    "pairing_karabina": {**final_exp_launches("karabina"), "fq12_mul_by_014": 68,
+                         "fq12_square": 62},
     # fused prepare+Miller: 68 ells, 62 squares
     "pairing": {**_FINAL_EXP, "fq12_mul_by_014": 68, "fq12_square": 62},
     # one term: the whole Miller loop is one kernel
@@ -358,6 +411,55 @@ def main() -> int:
             "plain_ms": time_host(lambda: kernels.cyc_exp_plain(cyc_in, _GS_SEGMENTS), 2),
             "bound": cyc_bound}
 
+        # the exponentiation's other forms on the same rows: the one-loop
+        # kernel (the rows of cyc_exp), a run of 32 squarings in either
+        # representation, the Karabina chain, the whole Karabina
+        # exponentiation (with the identity in a whole row and in one slot:
+        # the g2 == 0 branch and a zero norm)
+        n_run = 32
+        elements = RC.PACK * rows
+        numel = cyc_in.numel()
+        kara_in = cyc_in.clone()
+        kara_in[1] = tower.one((), dev)
+        kara_in[2, :, RC.SUB:] = tower.one((), dev)[:, RC.SUB:]
+        c_in = tower.compress_cyclotomic(kara_in)
+        sq_ops = n_run * tower_op_ops(elements, 12, CYC_SQ_PRODUCTS)
+        exp_cases = {
+            "cyc_exp_cond": ("cyc_exp.cu", 674, kernels.cyc_exp_cond,
+                             kernels.cyc_exp_cond_plain, (cyc_in, _GS_SEGMENTS),
+                             cyc_bound),
+            "cyc_square_run": ("square_run.cu", 339, kernels.cyc_square_run,
+                               kernels.cyc_square_run_plain, (cyc_in, n_run),
+                               bound_ms(2 * numel * 4, sq_ops)),
+            "kara_square_run": ("square_run.cu", 346, kernels.kara_square_run,
+                                kernels.kara_square_run_plain, (c_in, n_run),
+                                bound_ms(2 * c_in.numel() * 4,
+                                         kara_chain_ops(elements, n_run))),
+            "kara_exp": ("kara_exp.cu", 884, kernels.kara_exp, kernels.kara_exp_plain,
+                         (c_in, _KARA_SEGMENTS),
+                         bound_ms((1 + len(_KARA_SEGMENTS)) * c_in.numel() * 4,
+                                  kara_chain_ops(elements, sum(_KARA_SEGMENTS)))),
+            "kara_full": ("kara_full.cu", 649, kernels.kara_full, kernels.kara_full_plain,
+                          (kara_in, _KARA_SEGMENTS),
+                          bound_ms(2 * numel * 4, kara_full_ops(elements, _KARA_SEGMENTS))),
+        }
+        for name, (source, line, wrapper, plain, args, bound) in exp_cases.items():
+            got = wrapper(*args)
+            err = check(name, got, plain(*args), f"{tuple(args[0].shape)}, {args[1]}:")
+            if name.endswith("square_run"):  # and the shortest run of the paths
+                err = max(err, check(name, wrapper(args[0], 1), plain(args[0], 1),
+                                     f"{tuple(args[0].shape)}, 1:"))
+            kern[name] = {
+                "source": source, "replaces": line, "max_abs_err": err,
+                "ms": time_kernel(lambda i: wrapper(*args), 10),
+                "plain_ms": time_host(lambda: plain(*args), 1), "bound": bound}
+            if name == "cyc_exp_cond":
+                assert torch.equal(got, kernels.cyc_exp(cyc_in, _GS_SEGMENTS))
+            if name == "kara_full":
+                same = tower.is_equal(got, kernels.cyc_exp(kara_in, _GS_SEGMENTS))
+                assert bool(same.all()) and bool(tower.is_one(got)[1].all())
+        del kara_in, c_in, got
+
         e = rm.P - 2
         vals = [int.from_bytes(rng.bytes(48), "little") % rm.P for _ in range(256)]
         vals[3] = vals[200] = vals[201] = 0
@@ -392,7 +494,6 @@ def main() -> int:
         skip_rows = torch.zeros((rows, RC.LANES), dtype=torch.int32, device=dev)
         skip_rows[2, RC.SUB:] = 1
         skip_rows[3, :RC.SUB] = 1
-        elements = RC.PACK * rows
         tower_cases = {
             "fq12_mul": (tower.mul_plain, (f_rows, g_rows), 12, FQ12_MUL_PRODUCTS),
             "fq12_square": (tower.square_plain, (f_rows,), 12, FQ12_SQ_PRODUCTS),
@@ -504,10 +605,48 @@ def main() -> int:
               f"{nsmall}/{SMALL} bit-exact")
         assert nsmall == SMALL
 
+        # (d) the Karabina final exponentiation: pairing under
+        # impl="karabina" against the same oracle values and vectors
+        outk, path_counts["pairing_karabina"] = drive(
+            "pairing_karabina", lambda: mpr.pairing(p_dev, q_dev, impl="karabina"))
+        got_rows = fp.decode(outk)[:BATCH]
+        bad = [i for i in range(BATCH) if list(got_rows[i]) != want_rows[i]]
+        print(f"[pairing_karabina] vs oracle: {BATCH - len(bad)}/{BATCH} bit-exact")
+        assert not bad, f"pairing(impl='karabina') disagrees with the oracle at {bad[:8]}"
+        kout = mpr.pairing(G1Affine.encode(kp, device=dev), G2Affine.encode(kq, device=dev),
+                           impl="karabina")
+        nkat = sum(g == w for g, w in zip(list(tower.decode(kout))[: len(kat)], kwant))
+        print(f"[pairing_karabina] KAT e_chain: {nkat}/{len(kat)}")
+        assert nkat == len(kat)
+
+        # and each form of the exponentiation on that batch's Miller-loop
+        # output (elements 5 and 6 are one: the g2 == 0 branch)
+        f_miller = mpr.miller_loop_fused(p_dev, q_dev)
+        ones = tower.is_one(f_miller).reshape(-1)[:BATCH].nonzero().flatten().tolist()
+        assert ones == [5, 6]
+        exp_runs = {f"final_exp_{impl}":
+                    (lambda impl=impl: mpr.final_exponentiation(f_miller, impl=impl))
+                    for impl in mpr.EXP_IMPLS}
+        ref = None
+        for impl in mpr.EXP_IMPLS:
+            name = f"final_exp_{impl}"
+            got, path_counts[name] = drive(name, exp_runs[name])
+            ref = got if ref is None else ref
+            n_eq = int(tower.is_equal(got, ref).reshape(-1)[:BATCH].sum().item())
+            rows_same = torch.equal(got, ref)
+            print(f"[{name}] equal in value to final_exp_segments on {n_eq}/{BATCH}, "
+                  f"rows identical: {rows_same}")
+            assert n_eq == BATCH
+            assert rows_same or impl not in ("cond", "runs")
+        assert torch.equal(ref, out), "final_exponentiation(miller_loop_fused) is pairing"
+        del ref, got
+
         runs = {
             "pairing": lambda: mpr.pairing(p_dev, q_dev),
             "multi_pairing_1": lambda: mpr.multi_pairing([p_dev], [q_dev]),
             "pairing_check_2": lambda: mpr.pairing_check([p_dev, n_dev], [q_dev, q_dev]),
+            "pairing_karabina": lambda: mpr.pairing(p_dev, q_dev, impl="karabina"),
+            **exp_runs,
         }
         timed = {name: time_path(name, run, card) for name, run in runs.items()}
 
@@ -519,11 +658,17 @@ def main() -> int:
         print(json.dumps({"pairing_split": {
             "multi_pairing_1": timed["multi_pairing_1"],
             "pairing_check_2": timed["pairing_check_2"]}}))
+        print(json.dumps({"pairing_karabina": timed["pairing_karabina"]}))
+        for impl in mpr.EXP_IMPLS:
+            name = f"final_exp_{impl}"
+            print(json.dumps({name: {**timed[name], "launches": {
+                k: v for k, v in path_counts[name].items() if v}}}))
 
     for name in kernels.launches:
         assert sum(c[name] for c in path_counts.values()) > 0, (
             f"no path launched {name}")
-    order = ["cyc_exp", "pow_static", "miller_run", "fq12_mul", "fq12_square",
+    order = ["cyc_exp", "cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp",
+             "kara_full", "pow_static", "miller_run", "fq12_mul", "fq12_square",
              "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square"]
     assert sorted(order) == sorted(kern) == sorted(kernels.launches)
     report = {"kernels": [

@@ -1,8 +1,9 @@
 // Fq6/Fq12 tower formulas on residues, shared by the RNS kernels
-// (cyc_exp.cu, miller.cu, tower_ops.cu). Each Fq12 op takes the thread's 12
-// residues, computes the formula of ops/rns/tower.py lane by lane with
-// canonical residues, adds the bias rows its plain formula adds before the
-// REDC (rns_tables.h) and ends in one 12-row REDC.
+// (cyc_exp.cu, square_run.cu, kara_exp.cu, kara_full.cu, miller.cu,
+// tower_ops.cu). Each Fq12 op takes the thread's 12 residues, computes the
+// formula of ops/rns/tower.py lane by lane with canonical residues, adds the
+// bias rows its plain formula adds before the REDC (rns_tables.h) and ends in
+// one 12-row REDC; the Karabina squaring does the same on 8.
 //
 // A bias argument points at the thread's entry of the first of 12 rows that
 // lie BS ints apart: a register array (BS = 1) or a table of rns_tables.h at
@@ -54,6 +55,36 @@ __device__ __forceinline__ void cyc_square(int (&a)[12], const Lane& c, Smem<12>
   const F2 nz3 = f2_sub(f2_scale(t2_45, 3, c), f2_scale(f2_lift(z3, c), 2, c), c);
   const F2 outs[6] = {nz0, nz4, nz3, nz2, nz1, nz5};
   bias_redc<BS>(a, outs, c, s, bias);
+}
+
+// Karabina compressed squaring (tower.compressed_square) of g = (g2, g3, g4,
+// g5): with B45 = g4 g5, t45 = g4^2 + xi g5^2 = (g4 + g5)(g4 + xi g5) - B45 -
+// xi B45 (and B23, t23 alike), the outputs are h2 = 2 g2 + 6 xi B45, h3 =
+// 3 t45 - 2 g3, h4 = 3 t23 - 2 g4, h5 = 2 g5 + 6 B23, the bare g lifted into
+// the product domain, and one 8-row REDC.
+template <int BS, int KS>
+__device__ __forceinline__ void kara_square(int (&g)[8], const Lane& c, Smem<KS>& s,
+                                            const int* bias) {
+  const F2 g2{g[0], g[1]}, g3{g[2], g[3]}, g4{g[4], g[5]}, g5{g[6], g[7]};
+  const F2 b45 = f2_mul(g4, g5, c);
+  const F2 a45 = f2_mul(f2_add(g4, g5, c), f2_add(g4, f2_nonres(g5, c), c), c);
+  const F2 b23 = f2_mul(g2, g3, c);
+  const F2 a23 = f2_mul(f2_add(g2, g3, c), f2_add(g2, f2_nonres(g3, c), c), c);
+  const F2 xb45 = f2_nonres(b45, c);
+  const F2 t45 = f2_sub(f2_sub(a45, b45, c), xb45, c);
+  const F2 t23 = f2_sub(f2_sub(a23, b23, c), f2_nonres(b23, c), c);
+  const F2 h[4] = {
+      f2_add(f2_scale(f2_lift(g2, c), 2, c), f2_scale(xb45, 6, c), c),
+      f2_sub(f2_scale(t45, 3, c), f2_scale(f2_lift(g3, c), 2, c), c),
+      f2_sub(f2_scale(t23, 3, c), f2_scale(f2_lift(g4, c), 2, c), c),
+      f2_add(f2_scale(f2_lift(g5, c), 2, c), f2_scale(b23, 6, c), c),
+  };
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    g[2 * i] = add_m(h[i].c0, bias[(2 * i) * BS], c);
+    g[2 * i + 1] = add_m(h[i].c1, bias[(2 * i + 1) * BS], c);
+  }
+  redc<8>(g, c, s);
 }
 
 // Fq6 = Fq2[v]/(v^3 - xi) Karatsuba product (tower._fq6_mul).

@@ -9,13 +9,16 @@ package's models/pairing_rns.py).
                                   kernels.miller_run), one final exponentiation
                                   of the product.
 
-The final exponentiation's five exponentiations by |BLS_X| run the
-whole-exponent Granger-Scott kernel and its one Fq12 inverse ends in the
-Fermat-pow kernel; the Fq12 products and squarings of every path are the
-tower kernels (ops/rns/kernels.py).
+The final exponentiation's five exponentiations by |BLS_X| run in the form
+the `impl` keyword names (cyclotomic_exp; by default the whole-exponent
+Granger-Scott kernel) and its one Fq12 inverse ends in the Fermat-pow kernel;
+the Fq12 products and squarings of every path are the tower kernels
+(ops/rns/kernels.py).
 
 Stored rows are bit-identical to the JAX package's for the same inputs where
-the algorithm is the same (the Miller loop, the Granger-Scott exponentiation).
+the algorithm is the same: the Miller loop, the Granger-Scott exponentiation
+(impl "segments", "cond", "runs": the JAX package's fused form) and the
+Karabina exponentiation (impl "karabina", "karabina_runs": its default form).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from ..ops.rns import fp, kernels, tower
 from ..ops.rns.lines import (G1Affine, G2Affine, G2Projective, addition_step,
                              doubling_step, scale_terms)
 from .schedule import (_DO_SQUARE, _FUSED_RUNS, _FUSED_TAIL, _GS_SEGMENTS,
-                       _MILLER_RUNS, _RUNS, NUM_COEFFS)
+                       _KARA_SEGMENTS, _MILLER_RUNS, _RUNS, NUM_COEFFS)
 
 
 # ---------------------------------------------------------------------------
@@ -181,10 +184,66 @@ def miller_loop_fused(p: G1Affine, q: G2Affine) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def cyclotomic_exp(f: torch.Tensor) -> torch.Tensor:
-    """conj(f^|x|) = f^BLS_X (x < 0) for cyclotomic f: one whole-exponent
-    Granger-Scott square-and-multiply (kernels.cyc_exp)."""
-    return tower.conjugate(kernels.cyc_exp(f, _GS_SEGMENTS))
+#: The forms of the exponentiation by |BLS_X|, each one the JAX package has.
+EXP_IMPLS = ("segments", "cond", "runs", "karabina", "karabina_runs", "karabina_full")
+
+
+def _karabina_exp(f: torch.Tensor, chain) -> torch.Tensor:
+    """f^|x| as the product of the snapshots f^(2^e_k) of a compressed
+    squaring chain: `chain` maps the compressed element to the stacked
+    snapshots, which are decompressed together (one shared inversion) and
+    multiplied as a balanced tree of stacked products."""
+    cur = tower.decompress_cyclotomic(chain(tower.compress_cyclotomic(f)))
+    while cur.shape[0] > 1:
+        h = cur.shape[0] // 2
+        prod = tower.mul(cur[:h], cur[h:2 * h])
+        cur = torch.cat([prod, cur[2 * h:]]) if cur.shape[0] % 2 else prod
+    return cur[0]
+
+
+def _kara_chain_runs(c: torch.Tensor) -> torch.Tensor:
+    snaps = []
+    for n in _KARA_SEGMENTS:
+        if n:
+            c = kernels.kara_square_run(c, n)
+        snaps.append(c)
+    return torch.stack(snaps)
+
+
+def cyclotomic_exp(f: torch.Tensor, impl: str = "segments") -> torch.Tensor:
+    """conj(f^|x|) = f^BLS_X (x < 0) for cyclotomic f, in the form `impl`:
+      "segments"       one whole-exponent Granger-Scott square-and-multiply
+                       (kernels.cyc_exp);
+      "cond"           the same as one loop over the exponent's levels
+                       (kernels.cyc_exp_cond);
+      "runs"           one kernels.cyc_square_run per run of squarings, the
+                       products with f between them;
+      "karabina"       compressed squarings with snapshots (kernels.kara_exp),
+                       one batched decompression, the snapshots' product tree;
+      "karabina_runs"  the same with one kernels.kara_square_run per chain
+                       segment;
+      "karabina_full"  all of that in one kernel (kernels.kara_full).
+    All give the same value; the first three the same rows, and "karabina"
+    and "karabina_runs" the same rows."""
+    if impl == "segments":
+        out = kernels.cyc_exp(f, _GS_SEGMENTS)
+    elif impl == "cond":
+        out = kernels.cyc_exp_cond(f, _GS_SEGMENTS)
+    elif impl == "runs":
+        out = f
+        for n, mul_after in _GS_SEGMENTS:
+            out = kernels.cyc_square_run(out, n)
+            if mul_after:
+                out = tower.mul(out, f)
+    elif impl == "karabina":
+        out = _karabina_exp(f, lambda c: kernels.kara_exp(c, _KARA_SEGMENTS))
+    elif impl == "karabina_runs":
+        out = _karabina_exp(f, _kara_chain_runs)
+    elif impl == "karabina_full":
+        out = kernels.kara_full(f, _KARA_SEGMENTS)
+    else:
+        raise ValueError(f"impl must be one of {EXP_IMPLS}, got {impl!r}")
+    return tower.conjugate(out)
 
 
 #: The hard part's five exponentiations as uniform steps y = exp(a * b * c)
@@ -199,8 +258,9 @@ _EXP_STEPS = (
 )
 
 
-def final_exponentiation(f: torch.Tensor) -> torch.Tensor:
-    """Easy part + the zkcrypto hard-part chain (f^(3*(p^12-1)/r)).
+def final_exponentiation(f: torch.Tensor, impl: str = "segments") -> torch.Tensor:
+    """Easy part + the zkcrypto hard-part chain (f^(3*(p^12-1)/r)), its five
+    exponentiations in the form `impl` (cyclotomic_exp).
 
     The step loop keeps the JAX package's multiplies by one: each is a REDC
     that changes the stored representative, and keeping them keeps the rows
@@ -222,7 +282,7 @@ def final_exponentiation(f: torch.Tensor) -> torch.Tensor:
         b = t3 if bc_t3 >= 1 else one_b
         c = t3 if bc_t3 >= 2 else one_b
         x = tower.mul(tower.mul(a, b), c)
-        y = cyclotomic_exp(x)
+        y = cyclotomic_exp(x, impl)
         if a_is_t2:  # t3 is the first step's output
             t3 = y
         xs.append(x)
@@ -252,10 +312,11 @@ def final_exponentiation(f: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def pairing(p: G1Affine, q: G2Affine) -> torch.Tensor:
+def pairing(p: G1Affine, q: G2Affine, impl: str = "segments") -> torch.Tensor:
     """Batched full pairing e(P, Q) -> (rows, 12, LANES) Gt elements, on the
-    device the points lie on (G1Affine.encode / G2Affine.encode choose it)."""
-    return final_exponentiation(miller_loop_fused(p, q))
+    device the points lie on (G1Affine.encode / G2Affine.encode choose it).
+    `impl`: the form of the final exponentiation's powers (cyclotomic_exp)."""
+    return final_exponentiation(miller_loop_fused(p, q), impl)
 
 
 def multi_pairing(ps: list, qs: list) -> torch.Tensor:

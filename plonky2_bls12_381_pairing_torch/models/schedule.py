@@ -144,3 +144,10 @@ _GS_SEGMENTS = tuple(
      zip(sorted(_X_SET_BITS, reverse=True), sorted(_X_SET_BITS, reverse=True)[1:])]
     + [(min(_X_SET_BITS), False)])
 assert sum(n for n, _ in _GS_SEGMENTS) == C.BLS_X.bit_length() - 1
+
+#: Chain lengths of the Karabina exponentiation: compressed squarings between
+#: the ascending set bits of |BLS_X|; the state after each run is the
+#: snapshot f^(2^e_k), and f^|x| is the product of the snapshots.
+_KARA_SEGMENTS = tuple(e - l for e, l in zip(_X_SET_BITS, [0] + _X_SET_BITS[:-1]))
+assert sum(_KARA_SEGMENTS) == C.BLS_X.bit_length() - 1
+assert len(_KARA_SEGMENTS) == len(_GS_SEGMENTS)

@@ -453,6 +453,12 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
     return _rows_match(a, cst(("zero_rows",), a))
 
 
+def slot_lanes(mask: torch.Tensor) -> torch.Tensor:
+    """Per-element bools (..., PACK) -> bool lane mask (..., LANES), each
+    element's value over its 64-lane slot."""
+    return mask.repeat_interleave(RC.SUB, dim=-1)
+
+
 def is_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per packed element: a == b (mod p) via the k*p rows of a - b + 4p.
     Returns (..., PACK) bools."""
@@ -506,10 +512,9 @@ def inv(a: torch.Tensor) -> torch.Tensor:
     at the end."""
     rows = a.reshape(-1, LANES)
     n = rows.shape[0]
-    z = is_zero(rows)  # (n, PACK) bools
-    zm = z.to(torch.int32).repeat_interleave(RC.SUB, dim=-1)  # (n, LANES)
+    zm = slot_lanes(is_zero(rows))  # (n, LANES) bools
     ones = one((n,), a.device)
-    safe = torch.where(zm != 0, ones, rows)
+    safe = torch.where(zm, ones, rows)
     size = 1
     while size < n:
         size *= 2
@@ -525,5 +530,5 @@ def inv(a: torch.Tensor) -> torch.Tensor:
     for level in reversed(stack):
         h = level.shape[0] // 2
         invc = torch.cat([mul(invc, level[h:]), mul(invc, level[:h])], dim=0)
-    out = torch.where(zm != 0, torch.zeros_like(invc[:n]), invc[:n])
+    out = torch.where(zm, torch.zeros_like(invc[:n]), invc[:n])
     return out.reshape(a.shape)

@@ -26,12 +26,27 @@ _SLOT = slice(0, RC.SUB)
 def static_biases() -> dict[str, list[int]]:
     """Bias multiple k of each REDC input of one Granger-Scott squaring
     ("cyc"), Fq12 product ("mul"), complex squaring ("sq") and sparse product
-    mul_by_014 ("m014"), 12 each, and of the 4 rows of the Miller step's
-    coefficient scaling ("ell": c0*P.y, c1*P.x)."""
+    mul_by_014 ("m014"), 12 each; of the 4 rows of the Miller step's
+    coefficient scaling ("ell": c0*P.y, c1*P.x); of one Karabina squaring
+    ("kara", 8); and of the stacked REDCs of the Karabina decompression: the
+    numerator candidates ("knum", 4), the scaled conjugate of the denominator
+    ("kdinv", 2), g1 ("kg1", 2) and g0 ("kg0", 2)."""
     z = torch.zeros((1, 12, RC.LANES), dtype=torch.int32)
     d = z[:, :2]
     w = fp.wrap(z[:, :1])
+    c8 = z[:, :8]
+    s = fp.wrap(z[:, 0])
+    # the decompression's single-row REDCs (the norm, the inverse over 4) and
+    # the steps of the Fermat power reduce sums of products of stored values:
+    # the kernels add no bias there
+    assert fp.nonneg_multiple(fp.mul_rr(s, s) + fp.mul_rr(s, s)) == 0
+    assert fp.nonneg_multiple(fp.mul_rr(s, tower.quarter(z))) == 0
     return {
+        "kara": [fp.nonneg_multiple(r) for r in tower._kara_square_terms(c8)],
+        "knum": [fp.nonneg_multiple(r) for r in tower._decompress_num_terms(c8)],
+        "kdinv": [fp.nonneg_multiple(r) for r in tower._fq2_conj_scaled_terms(d, s)],
+        "kg1": [fp.nonneg_multiple(r) for r in tower._decompress_g1_terms(d, d)],
+        "kg0": [fp.nonneg_multiple(r) for r in tower._decompress_g0_terms(c8, d)],
         "cyc": [fp.nonneg_multiple(r) for r in tower._cyc_square_terms(z)],
         "mul": [fp.nonneg_multiple(r) for r in tower._mul_terms(z, z)],
         "sq": [fp.nonneg_multiple(r) for r in tower._square_terms(z)],
@@ -44,7 +59,10 @@ def static_biases() -> dict[str, list[int]]:
 
 #: C name of each bias table.
 BIAS_TABLES = {"cyc": "RNS_CYC_BIAS", "mul": "RNS_MUL_BIAS", "sq": "RNS_SQ_BIAS",
-               "m014": "RNS_M014_BIAS", "ell": "RNS_ELL_BIAS"}
+               "m014": "RNS_M014_BIAS", "ell": "RNS_ELL_BIAS",
+               "kara": "RNS_KARA_BIAS", "knum": "RNS_KNUM_BIAS",
+               "kdinv": "RNS_KDINV_BIAS", "kg1": "RNS_KG1_BIAS",
+               "kg0": "RNS_KG0_BIAS"}
 
 
 def tables() -> dict[str, np.ndarray]:
@@ -66,6 +84,13 @@ def tables() -> dict[str, np.ndarray]:
         # from base-A rows, T2 from base-B rows
         "RNS_T1A": RC.T1[RC.A_LO:RC.A_HI, _SLOT],
         "RNS_T2B": RC.T2[RC.B_LO:RC.B_HI, _SLOT],
+        # the Karabina decompression: the rows of k*p a stored zero can
+        # equal (every lane but ALPHA_LANE is a channel), the stored one and
+        # 4^-1, and 4p for the negation 4p - x
+        "RNS_ZERO_TEST": RC.ZERO_TEST_ROWS[:, _SLOT],
+        "RNS_ONE": RC.ONE[_SLOT],
+        "RNS_QUARTER": tower._QUARTER[_SLOT],
+        "RNS_PMUL4": RC.p_mult_row(4)[_SLOT],
     }
     for key, name in BIAS_TABLES.items():
         t[name] = np.stack([RC.p_mult_row(k)[_SLOT] for k in biases[key]])
@@ -99,6 +124,8 @@ def header_text() -> str:
         f"#define RNS_ALPHA_LANE {RC.ALPHA_LANE}",
         f"#define RNS_ALPHA_T {RC.ALPHA_T}",
         f"#define RNS_BETA_T {RC.BETA_T}",
+        "// flat Fq12 component of each compressed Karabina component",
+        f"#define RNS_KARA_IDX {{{', '.join(map(str, tower._KARA_IDX))}}}",
         "// RNS_*_BIAS: residues of k*p, k the nonneg bias multiple of each REDC",
         "// input of the formula (kernel_tables.static_biases).",
         "// The tables are indexed by lane, a different entry for every thread",

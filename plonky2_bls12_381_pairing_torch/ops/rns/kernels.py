@@ -3,6 +3,13 @@ ops/rns/pallas.py on the pairing's paths), their plain PyTorch versions, the
 nvcc build and the ctypes binding.
 
   cyc_exp(a, segments)            <- pallas.cyc_exp_run      (csrc/cyc_exp.cu)
+  cyc_exp_cond(a, segments)       <- pallas.cyc_exp_run in its one-loop build,
+                                     _build_cyc_exp_cond     (csrc/cyc_exp.cu)
+  cyc_square_run(a, n), kara_square_run(c, n)
+                                  <- pallas.cyc_square_run, kara_square_run
+                                                             (csrc/square_run.cu)
+  kara_exp(c, segments)           <- pallas.kara_exp_run     (csrc/kara_exp.cu)
+  kara_full(a, segments)          <- pallas.kara_full_run    (csrc/kara_full.cu)
   pow_static_fused(a, exponent)   <- pallas.pow_static_fused (csrc/pow_static.cu)
   miller_run(f0, coeffs, py, px, skip, flags)
                                   <- pallas.miller_run       (csrc/miller.cu)
@@ -45,11 +52,23 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _PTR, _INT, _STRIDE = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: kernel name -> (source, C entry point, its argument types). A tensor
 #: operand with a row stride is (_PTR, _STRIDE); every entry ends in the
-#: output pointer, the row count and the stream, but for cyc_exp and
-#: pow_static, which take (a, out, rows, int array, its length, stream).
+#: output pointer, the row count and the stream, but for the exponentiation
+#: and pow kernels, which take (a, out, rows, int array, its length, stream;
+#: kara_full two arrays), and the square runs, which take (a, out, rows, n,
+#: stream).
 _KERNELS = {
     "cyc_exp": ("cyc_exp.cu", "cyc_exp_launch",
                 [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
+    "cyc_exp_cond": ("cyc_exp.cu", "cyc_exp_cond_launch",
+                     [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
+    "cyc_square_run": ("square_run.cu", "cyc_square_run_launch",
+                       [_PTR, _PTR, _INT, _INT, _PTR]),
+    "kara_square_run": ("square_run.cu", "kara_square_run_launch",
+                        [_PTR, _PTR, _INT, _INT, _PTR]),
+    "kara_exp": ("kara_exp.cu", "kara_exp_launch",
+                 [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
+    "kara_full": ("kara_full.cu", "kara_full_launch",
+                  [_PTR, _PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR]),
     "pow_static": ("pow_static.cu", "pow_static_launch",
                    [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
     "miller_run": ("miller.cu", "miller_run_launch",
@@ -93,6 +112,86 @@ def cyc_exp_plain(a: torch.Tensor, segments) -> torch.Tensor:
         if mul_after:
             acc = tower.mul_plain(acc, a)
     return acc
+
+
+def _segments_to_flags(segments) -> tuple[int, ...]:
+    """(n_squares, multiply_after) segments -> per-level multiply flags:
+    level i is one squaring, then a multiply by the base iff flags[i]."""
+    flags: list[int] = []
+    for n_sq, mul_after in segments:
+        flags.extend([0] * n_sq)
+        if mul_after:
+            flags[-1] = 1
+    return tuple(flags)
+
+
+def cyc_exp_cond_plain(a: torch.Tensor, segments) -> torch.Tensor:
+    """cyc_exp_plain's value and rows from one loop over the exponent's
+    levels: a squaring, then the product with the base where the level's
+    flag is set."""
+    acc = a
+    for flag in _segments_to_flags(segments):
+        acc = tower.cyclotomic_square_plain(acc)
+        if flag:
+            acc = tower.mul_plain(acc, a)
+    return acc
+
+
+def cyc_square_run_plain(a: torch.Tensor, n: int) -> torch.Tensor:
+    """n Granger-Scott squarings of cyclotomic a (..., 12, LANES)."""
+    for _ in range(n):
+        a = tower.cyclotomic_square_plain(a)
+    return a
+
+
+def kara_square_run_plain(c: torch.Tensor, n: int) -> torch.Tensor:
+    """n Karabina squarings of compressed c (..., 8, LANES)."""
+    for _ in range(n):
+        c = tower.compressed_square_plain(c)
+    return c
+
+
+def kara_exp_plain(c: torch.Tensor, segments) -> torch.Tensor:
+    """The Karabina chain with snapshots: compressed c (..., 8, LANES) ->
+    (len(segments), ..., 8, LANES), snapshot k the state after
+    sum(segments[:k + 1]) squarings."""
+    snaps = []
+    for n in segments:
+        c = kara_square_run_plain(c, n)
+        snaps.append(c)
+    return torch.stack(snaps)
+
+
+#: Snapshots of kara_full: its product tree is written out for six.
+KARA_FULL_SNAPSHOTS = 6
+
+
+def kara_full_plain(a: torch.Tensor, segments) -> torch.Tensor:
+    """a^|x| for cyclotomic a (..., 12, LANES), |x| = sum_k 2^(e_k) with
+    e_k the running sums of the six `segments`: the Karabina chain, the
+    decompression of the six snapshots and their product
+    ((s0 s1)(s2 s3))(s4 s5).
+
+    The steps of tower.decompress_cyclotomic in the order of the
+    whole-exponentiation kernel: every norm is inverted by its own Fermat
+    power (no product tree across rows), and the Karabina 1/4 is folded into
+    the norm's inverse before it scales the conjugate, where
+    decompress_cyclotomic scales the finished inverse: equal values, other
+    rows."""
+    snaps = kara_exp_plain(tower.compress_cyclotomic(a), segments)
+    s1 = fp.redc_stack(tower._decompress_num_terms(snaps))
+    num, den = tower._decompress_select(snaps, s1)
+    norm = tower._fq2_norm(den)
+    zero = fp.slot_lanes(fp.is_zero(norm))
+    safe = torch.where(zero, fp.cst(("one",), norm), norm)
+    ninv = torch.where(zero, torch.zeros_like(norm), fp.pow_static(safe, fp.P - 2))
+    nq = fp.redc(fp.mul_rr(fp.wrap(ninv), tower.quarter(ninv)))
+    dq = fp.redc_stack(tower._fq2_conj_scaled_terms(den, fp.wrap(nq)))
+    g1s = fp.redc_stack(tower._decompress_g1_terms(num, dq))
+    g0s = fp.redc_stack(tower._decompress_g0_terms(snaps, g1s))
+    fulls = tower._decompress_assemble(snaps, g0s, g1s)
+    p = tower.mul_plain(fulls[0::2], fulls[1::2])
+    return tower.mul_plain(tower.mul_plain(p[0], p[1]), p[2])
 
 
 # The plain version of pow_static_fused is fp.pow_static; those of the tower
@@ -294,6 +393,84 @@ def cyc_exp(a: torch.Tensor, segments) -> torch.Tensor:
     segs = _int_arg(("segs", segments), [v for s in segments for v in s], a.device)
     rows = a.numel() // (12 * LANES)
     return _launch("cyc_exp", a, rows, segs, len(segments))
+
+
+def cyc_exp_cond(a: torch.Tensor, segments) -> torch.Tensor:
+    """cyc_exp's a^X, row for row, as one loop over X's levels with the
+    product under a per-level flag."""
+    segments = tuple((int(n), int(bool(m))) for n, m in segments)
+    if a.device.type == "cpu":
+        return cyc_exp_cond_plain(a, segments)
+    _check(a, (12, LANES))
+    flags = _segments_to_flags(segments)
+    arg = _int_arg(("levels", flags), flags or [0], a.device)
+    return _launch("cyc_exp_cond", a, a.numel() // (12 * LANES), arg, len(flags))
+
+
+def _square_run(name: str, plain, a: torch.Tensor, n: int, ncomp: int) -> torch.Tensor:
+    n = int(n)
+    if n < 0:
+        raise ValueError("the number of squarings must be >= 0")
+    if a.device.type == "cpu":
+        return plain(a, n)
+    _check(a, (ncomp, LANES))
+    out = torch.empty_like(a)
+    _call(name, a.device, a.data_ptr(), out.data_ptr(), a.numel() // (ncomp * LANES), n)
+    return out
+
+
+def cyc_square_run(a: torch.Tensor, n: int) -> torch.Tensor:
+    """n Granger-Scott squarings of cyclotomic Fq12 rows a (..., 12, LANES)
+    int32, the state on chip for the run."""
+    return _square_run("cyc_square_run", cyc_square_run_plain, a, n, 12)
+
+
+def kara_square_run(c: torch.Tensor, n: int) -> torch.Tensor:
+    """n Karabina squarings of compressed rows c (..., 8, LANES) int32
+    (tower.compressed_square), the state on chip for the run."""
+    return _square_run("kara_square_run", kara_square_run_plain, c, n, 8)
+
+
+def _chain_lengths(segments) -> tuple[int, ...]:
+    segments = tuple(int(n) for n in segments)
+    if not segments or min(segments) < 0:
+        raise ValueError("expected one chain length >= 0 per snapshot")
+    return segments
+
+
+def kara_exp(c: torch.Tensor, segments) -> torch.Tensor:
+    """The Karabina chain with snapshots: compressed rows c (..., 8, LANES)
+    int32 -> (len(segments), ..., 8, LANES), snapshot k the state after
+    sum(segments[:k + 1]) squarings."""
+    segments = _chain_lengths(segments)
+    if c.device.type == "cpu":
+        return kara_exp_plain(c, segments)
+    _check(c, (8, LANES))
+    out = torch.empty((len(segments), *c.shape), dtype=torch.int32, device=c.device)
+    segs = _int_arg(("chain", segments), segments, c.device)
+    _call("kara_exp", c.device, c.data_ptr(), out.data_ptr(), c.numel() // (8 * LANES),
+          segs.data_ptr(), len(segments))
+    return out
+
+
+def kara_full(a: torch.Tensor, segments) -> torch.Tensor:
+    """a^|x| for cyclotomic Fq12 rows a (..., 12, LANES) int32, |x| given by
+    the six Karabina chain lengths: chain, decompression, the inversions and
+    the snapshots' product in one kernel."""
+    segments = _chain_lengths(segments)
+    if len(segments) != KARA_FULL_SNAPSHOTS:
+        raise ValueError(f"expected {KARA_FULL_SNAPSHOTS} chain lengths, "
+                         f"got {len(segments)}")
+    if a.device.type == "cpu":
+        return kara_full_plain(a, segments)
+    _check(a, (12, LANES))
+    out = torch.empty_like(a)
+    segs = _int_arg(("chain", segments), segments, a.device)
+    bits = fp.exponent_bits(fp.P - 2)
+    _call("kara_full", a.device, a.data_ptr(), out.data_ptr(), a.numel() // (12 * LANES),
+          segs.data_ptr(), len(segments),
+          _int_arg(("bits", fp.P - 2), bits, a.device).data_ptr(), len(bits))
+    return out
 
 
 def pow_static_fused(a: torch.Tensor, exponent: int) -> torch.Tensor:

@@ -13,7 +13,7 @@ Element layout: Fq12 = (..., 12, LANES) int32 in flat tower order
 mul, square, mul_by_014, mul_by_014_square and cyclotomic_square go through
 their wrappers in ops/rns/kernels.py (the JAX package's fused_op sites): the
 plain formula `<op>_plain` for a tensor on the CPU, one CUDA kernel for a
-tensor on a card.
+tensor on a card. compressed_square is kernels.kara_square_run with n = 1.
 """
 
 from __future__ import annotations
@@ -331,6 +331,146 @@ def cyclotomic_square(a: torch.Tensor) -> torch.Tensor:
     return _kernels().fq12_cyclotomic_square(a)
 
 
+# -- Karabina compressed cyclotomic squaring --------------------------------
+#
+# eprint 2010/542 (Karabina, "Squaring in cyclotomic subgroups"), in the
+# Granger-Scott Fp4-tower labelling used by cyclotomic_square: a cyclotomic
+# element is represented by (g2, g3, g4, g5) alone; a squaring costs 4 Fq2
+# products and 8 REDC rows (9 and 12 for full Granger-Scott), and the dropped
+# (g0, g1) are recovered with one Fq2 inversion, which all decompressions of
+# an exponentiation share through the batched fp.inv.
+
+#: Flat component indices of (g2, g3, g4, g5): in the GS labelling
+#: g2 = c1.c0, g3 = c0.c2, g4 = c0.c1, g5 = c1.c2.
+_KARA_IDX = [6, 7, 4, 5, 2, 3, 10, 11]
+
+
+def compress_cyclotomic(a: torch.Tensor) -> torch.Tensor:
+    """(..., 12, LANES) cyclotomic element -> (..., 8, LANES) compressed."""
+    return a[..., _KARA_IDX, :]
+
+
+def _kpairs(c: torch.Tensor):
+    g = lambda i: (fp.wrap(c[..., 2 * i, :]), fp.wrap(c[..., 2 * i + 1, :]))
+    return g(0), g(1), g(2), g(3)  # g2, g3, g4, g5
+
+
+def _to_prod_pair(c: torch.Tensor, i: int) -> tuple[R, R]:
+    """The i-th Fq2 component lifted into the product domain."""
+    return fp.to_prod(c[..., 2 * i, :]), fp.to_prod(c[..., 2 * i + 1, :])
+
+
+def _kara_square_terms(c: torch.Tensor) -> list[R]:
+    """The 8 lazy outputs of one Karabina squaring, before their REDC."""
+    g2, g3, g4, g5 = _kpairs(c)
+    B45 = fq2_mul_r(*g4, *g5)
+    A45 = fq2_mul_r(g4[0] + g5[0], g4[1] + g5[1],
+                    g4[0] + g5[0] - g5[1], g4[1] + g5[0] + g5[1])
+    B23 = fq2_mul_r(*g2, *g3)
+    A23 = fq2_mul_r(g2[0] + g3[0], g2[1] + g3[1],
+                    g2[0] + g3[0] - g3[1], g2[1] + g3[0] + g3[1])
+    t45 = _pair_sub(_pair_sub(A45, B45), fq2_nonres(B45))  # g4^2 + xi g5^2
+    t23 = _pair_sub(_pair_sub(A23, B23), fq2_nonres(B23))  # g2^2 + xi g3^2
+    g2p, g3p, g4p, g5p = (_to_prod_pair(c, i) for i in range(4))
+    h2 = _pair_add(_pair_scale(g2p, 2), _pair_scale(fq2_nonres(B45), 6))
+    h3 = _pair_sub(_pair_scale(t45, 3), _pair_scale(g3p, 2))
+    h4 = _pair_sub(_pair_scale(t23, 3), _pair_scale(g4p, 2))
+    h5 = _pair_add(_pair_scale(g5p, 2), _pair_scale(B23, 6))
+    return [h2[0], h2[1], h3[0], h3[1], h4[0], h4[1], h5[0], h5[1]]
+
+
+def compressed_square_plain(c: torch.Tensor) -> torch.Tensor:
+    return fp.redc_stack(_kara_square_terms(c))
+
+
+def compressed_square(c: torch.Tensor) -> torch.Tensor:
+    """One Karabina squaring on (..., 8, LANES) compressed data."""
+    return _kernels().kara_square_run(c, 1)
+
+
+#: Stored row of 4^-1 mod p.
+_QUARTER = RC.encode_int(pow(4, -1, RC.P))
+
+
+def quarter(like: torch.Tensor) -> R:
+    return fp.wrap(fp.cst(("kara_quarter",), like, _QUARTER))
+
+
+# decompress_cyclotomic in its pieces, each the lazy inputs of one stacked
+# REDC; kernels.kara_full_plain puts the same pieces together in the order of
+# the whole-exponentiation kernel.
+
+
+def _decompress_num_terms(c: torch.Tensor) -> list[R]:
+    """The two candidate numerators of g1 (times 4): xi g5^2 + 3 g4^2 - 2 g3
+    for g2 != 0 and 8 g4 g5 for g2 == 0, as 4 lazy values."""
+    _, _, g4, g5 = _kpairs(c)
+    g3p = _to_prod_pair(c, 1)
+    g5sq = fq2_mul_r(*g5, *g5)
+    g4sq = fq2_mul_r(*g4, *g4)
+    g4g5 = fq2_mul_r(*g4, *g5)
+    num1 = _pair_sub(_pair_add(fq2_nonres(g5sq), _pair_scale(g4sq, 3)),
+                     _pair_scale(g3p, 2))
+    num2 = _pair_scale(g4g5, 8)
+    return [num1[0], num1[1], num2[0], num2[1]]
+
+
+def _decompress_select(c: torch.Tensor, s1: torch.Tensor):
+    """Numerator (of the reduced candidates s1) and denominator of g1 per
+    packed element: (num2, g3) where g2 == 0, else (num1, g2)."""
+    z2 = fp.is_zero(c[..., 0, :]) & fp.is_zero(c[..., 1, :])  # (..., PACK)
+    zlane = fp.slot_lanes(z2)[..., None, :]
+    num = torch.where(zlane, s1[..., 2:4, :], s1[..., 0:2, :])
+    den = torch.where(zlane, c[..., 2:4, :], c[..., 0:2, :])
+    return num, den
+
+
+def _decompress_g1_terms(num: torch.Tensor, dq: torch.Tensor) -> list[R]:
+    """g1 = num * dq, dq the denominator's inverse over 4."""
+    return list(fq2_mul_r(fp.wrap(num[..., 0, :]), fp.wrap(num[..., 1, :]),
+                          fp.wrap(dq[..., 0, :]), fp.wrap(dq[..., 1, :])))
+
+
+def _decompress_g0_terms(c: torch.Tensor, g1s: torch.Tensor) -> list[R]:
+    """g0 = xi (2 g1^2 + g2 g5 - 3 g3 g4) + 1."""
+    g2, g3, g4, g5 = _kpairs(c)
+    g1 = (fp.wrap(g1s[..., 0, :]), fp.wrap(g1s[..., 1, :]))
+    g1sq = fq2_mul_r(*g1, *g1)
+    g2g5 = fq2_mul_r(*g2, *g5)
+    g3g4 = fq2_mul_r(*g3, *g4)
+    inner = _pair_sub(_pair_add(_pair_scale(g1sq, 2), g2g5),
+                      _pair_scale(g3g4, 3))
+    one_p = fp.to_prod(fp.cst(("one",), c).expand(c[..., 0, :].shape))
+    g0w = _pair_add(fq2_nonres(inner), (one_p, one_p.scale(0)))
+    return [g0w[0], g0w[1]]
+
+
+def _decompress_assemble(c: torch.Tensor, g0s: torch.Tensor,
+                         g1s: torch.Tensor) -> torch.Tensor:
+    """Flat tower order: c0 = (g0, g4, g3), c1 = (g2, g1, g5)."""
+    return torch.cat([g0s, c[..., 4:6, :], c[..., 2:4, :], c[..., 0:2, :],
+                      g1s, c[..., 6:8, :]], dim=-2)
+
+
+def decompress_cyclotomic(c: torch.Tensor) -> torch.Tensor:
+    """(..., 8, LANES) compressed -> (..., 12, LANES) full element.
+
+    g1 = (xi g5^2 + 3 g4^2 - 2 g3) / (4 g2)            (g2 != 0)
+       = (8 g4 g5) / (4 g3)                            (g2 == 0)
+    g0 = xi (2 g1^2 + g2 g5 - 3 g3 g4) + 1  (covers both cases: g2 g5 = 0
+    when g2 = 0), and all-zero input decompresses to one, the identity.
+    All elements of c share one batched inversion."""
+    s1 = fp.redc_stack(_decompress_num_terms(c))
+    num, den = _decompress_select(c, s1)
+    dinv = _fq2_inv(den)
+    q = quarter(c)
+    dq = fp.redc_stack([fp.mul_rr(fp.wrap(dinv[..., 0, :]), q),
+                        fp.mul_rr(fp.wrap(dinv[..., 1, :]), q)])  # dinv / 4
+    g1s = fp.redc_stack(_decompress_g1_terms(num, dq))
+    g0s = fp.redc_stack(_decompress_g0_terms(c, g1s))
+    return _decompress_assemble(c, g0s, g1s)
+
+
 # -- Frobenius --------------------------------------------------------------
 
 # Combined gamma constants: the fq6-level twists (gamma6_1, gamma6_2) and the
@@ -391,13 +531,24 @@ def frobenius_pow(a: torch.Tensor, n: int) -> torch.Tensor:
 # -- inversion --------------------------------------------------------------
 
 
-def _fq2_inv(a: torch.Tensor) -> torch.Tensor:
-    """(c0 - c1 u)/(c0^2 + c1^2): one batched Fp inverse."""
+def _fq2_norm(a: torch.Tensor) -> torch.Tensor:
+    """c0^2 + c1^2 as a stored Fp element."""
     c0 = fp.wrap(a[..., 0, :])
     c1 = fp.wrap(a[..., 1, :])
-    norm = fp.redc(fp.mul_rr(c0, c0) + fp.mul_rr(c1, c1))
-    w = fp.wrap(fp.inv(norm))
-    return fp.redc_stack([fp.mul_rr(c0, w), fp.mul_rr(fp.neg_r(c1, 4), w)])
+    return fp.redc(fp.mul_rr(c0, c0) + fp.mul_rr(c1, c1))
+
+
+def _fq2_conj_scaled_terms(a: torch.Tensor, w: R) -> list[R]:
+    """The 2 lazy outputs of (c0 - c1 u) * w, w in Fp."""
+    c0 = fp.wrap(a[..., 0, :])
+    c1 = fp.wrap(a[..., 1, :])
+    return [fp.mul_rr(c0, w), fp.mul_rr(fp.neg_r(c1, 4), w)]
+
+
+def _fq2_inv(a: torch.Tensor) -> torch.Tensor:
+    """(c0 - c1 u)/(c0^2 + c1^2): one batched Fp inverse."""
+    w = fp.wrap(fp.inv(_fq2_norm(a)))
+    return fp.redc_stack(_fq2_conj_scaled_terms(a, w))
 
 
 def _fq6_inv(a: torch.Tensor) -> torch.Tensor:

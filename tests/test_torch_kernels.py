@@ -16,7 +16,8 @@ import torch
 
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
-from plonky2_bls12_381_pairing_torch.models.schedule import _DO_SQUARE, _GS_SEGMENTS
+from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _GS_SEGMENTS,
+                                                             _KARA_SEGMENTS)
 from plonky2_bls12_381_pairing_torch.ops.rns import (fp, kernel_tables, kernels, lines,
                                                      tower)
 from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
@@ -103,10 +104,30 @@ def test_cpu_wrappers_run_plain_versions():
     args = miller_inputs(2, 0xEC, "cpu")
     assert torch.equal(kernels.miller_run(*args, _DO_SQUARE),
                        kernels.miller_run_plain(*args, _DO_SQUARE))
+    # the forms of the exponentiation: runs of squarings, the one-loop form,
+    # the Karabina chain and the whole Karabina exponentiation
+    assert torch.equal(kernels.cyc_exp_cond(a, segs), got)
+    assert torch.equal(kernels.cyc_square_run(a, 3), kernels.cyc_square_run_plain(a, 3))
+    assert torch.equal(kernels.cyc_square_run(a, 0), a)
+    c = tower.compress_cyclotomic(a)
+    assert torch.equal(kernels.kara_square_run(c, 2), tower.compressed_square(
+        tower.compressed_square_plain(c)))
+    snaps = kernels.kara_exp(c, (2, 0, 1))
+    assert snaps.shape == (3, *c.shape) and torch.equal(snaps[0], snaps[1])
+    assert torch.equal(snaps, kernels.kara_exp_plain(c, (2, 0, 1)))
+    small = (1, 0, 2, 1, 0, 1)
+    assert torch.equal(kernels.kara_full(a, small), kernels.kara_full_plain(a, small))
     assert set(kernels.launches) == {
-        "cyc_exp", "pow_static", "miller_run", "fq12_mul", "fq12_square",
+        "cyc_exp", "cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp",
+        "kara_full", "pow_static", "miller_run", "fq12_mul", "fq12_square",
         "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square"}
     assert all(n == 0 for n in kernels.launches.values())
+    with pytest.raises(ValueError):
+        kernels.kara_full(a, (1, 2, 3))
+    with pytest.raises(ValueError):
+        kernels.kara_exp(c, ())
+    with pytest.raises(ValueError):
+        kernels.cyc_square_run(a, -1)
     with pytest.raises(ValueError):
         kernels.pow_static_fused(x, 0)
 
@@ -145,9 +166,16 @@ def test_wrappers_refuse_other_devices():
         kernels.pow_static_fused(torch.empty((1, RC.LANES), dtype=torch.int32,
                                              device="meta"), rm.P - 2)
     f = torch.empty((1, 12, RC.LANES), dtype=torch.int32, device="meta")
+    c = torch.empty((1, 8, RC.LANES), dtype=torch.int32, device="meta")
     d = torch.empty((1, 2, RC.LANES), dtype=torch.int32, device="meta")
     row = torch.empty((1, RC.LANES), dtype=torch.int32, device="meta")
     for call in (lambda: kernels.fq12_mul(f, f), lambda: kernels.fq12_square(f),
+                 lambda: kernels.cyc_exp_cond(f, _GS_SEGMENTS),
+                 lambda: kernels.cyc_square_run(f, 2),
+                 lambda: kernels.kara_square_run(c, 2),
+                 lambda: tower.compressed_square(c),
+                 lambda: kernels.kara_exp(c, _KARA_SEGMENTS),
+                 lambda: kernels.kara_full(f, _KARA_SEGMENTS),
                  lambda: kernels.fq12_cyclotomic_square(f),
                  lambda: kernels.fq12_mul_by_014(f, d, d, d),
                  lambda: kernels.fq12_mul_by_014_square(f, d, d, d, row),
@@ -208,11 +236,25 @@ def test_kernel_header_matches_tables():
     assert not blk.any()
     assert np.array_equal(RC.T1[RC.SUB:, RC.SUB:], RC.T1[:RC.SUB, :RC.SUB])
     biases = kernel_tables.static_biases()
-    assert sorted(kernel_tables.BIAS_TABLES) == ["cyc", "ell", "m014", "mul", "sq"]
+    rows = {"cyc": 12, "mul": 12, "sq": 12, "m014": 12, "ell": 4, "kara": 8,
+            "knum": 4, "kdinv": 2, "kg1": 2, "kg0": 2}
+    assert sorted(kernel_tables.BIAS_TABLES) == sorted(rows)
     for key, name in kernel_tables.BIAS_TABLES.items():
-        assert len(biases[key]) == (4 if key == "ell" else 12)
+        assert len(biases[key]) == rows[key]
         want = np.stack([RC.p_mult_row(k)[:RC.SUB] for k in biases[key]])
         assert np.array_equal(arrs[name], want), name
+    # the decompression's zero test and constants: both slots share each row,
+    # and every lane but ALPHA_LANE is a channel (the kernel's zero test
+    # passes exactly that lane)
+    assert np.array_equal(np.tile(arrs["RNS_ZERO_TEST"], (1, RC.PACK)), RC.ZERO_TEST_ROWS)
+    assert np.flatnonzero(~RC.IS_CH[:RC.SUB]).tolist() == [RC.ALPHA_LANE]
+    assert np.array_equal(tile("RNS_ONE"), RC.ONE)
+    assert np.array_equal(tile("RNS_PMUL4"), RC.p_mult_row(4))
+    assert np.array_equal(tile("RNS_QUARTER"), RC.encode_int(pow(4, -1, RC.P)))
+    assert fp.decode(RC.encode_int(pow(4, -1, RC.P))) * 4 % RC.P == 1
+    assert (f"#define RNS_KARA_IDX {{{', '.join(map(str, tower._KARA_IDX))}}}\n"
+            in kernel_tables.header_text())
+    assert f"#define RNS_ALPHA_LANE {RC.ALPHA_LANE}\n" in kernel_tables.header_text()
     for name, value in (("RNS_NCH", RC.NCH), ("RNS_ALPHA_T", RC.ALPHA_T),
                         ("RNS_BETA_T", RC.BETA_T), ("RNS_B_LO", RC.B_LO)):
         assert f"#define {name} {value}\n" in kernel_tables.header_text()
@@ -225,6 +267,9 @@ def test_static_biases_match_redc_stack():
     b = torch.from_numpy(cyclotomic_rows(2, 0xE4))
     d0, d1, d4 = (torch.from_numpy(fq2_rows(2, s)) for s in (0xED, 0xEE, 0xEF))
     biases = kernel_tables.static_biases()
+    c = tower.compress_cyclotomic(a)
+    num, den = c[..., 4:6, :], c[..., 2:4, :]
+    w = fp.wrap(d0[..., 0, :])
     # the scaling's two terms are 2-row values: one row each for the check
     ell = [fp.R(r.ch[..., i, :], r.lo, r.hi, r.vlo, r.vhi)
            for r in lines.scale_terms(d0, d1, fp.wrap(d4[..., :1, :]),
@@ -236,7 +281,16 @@ def test_static_biases_match_redc_stack():
             (tower._mul014_terms(a, d0, d1, d4), biases["m014"],
              tower.mul_by_014(a, d0, d1, d4)),
             (ell, biases["ell"], fp.redc_cat(lines.scale_terms(
-                d0, d1, fp.wrap(d4[..., :1, :]), fp.wrap(d4[..., 1:, :]))))):
+                d0, d1, fp.wrap(d4[..., :1, :]), fp.wrap(d4[..., 1:, :])))),
+            (tower._kara_square_terms(c), biases["kara"], tower.compressed_square(c)),
+            (tower._decompress_num_terms(c), biases["knum"],
+             fp.redc_stack(tower._decompress_num_terms(c))),
+            (tower._fq2_conj_scaled_terms(den, w), biases["kdinv"],
+             fp.redc_stack(tower._fq2_conj_scaled_terms(den, w))),
+            (tower._decompress_g1_terms(num, den), biases["kg1"],
+             fp.redc_stack(tower._decompress_g1_terms(num, den))),
+            (tower._decompress_g0_terms(c, d0), biases["kg0"],
+             fp.redc_stack(tower._decompress_g0_terms(c, d0)))):
         biased = [r.bias(k) if k else r for r, k in zip(terms, ks)]
         assert all(r.vlo >= 0 for r in biased)
         assert all(k == 0 or r.vlo + (k - 1) * fp.P < 0 for r, k in zip(terms, ks))
@@ -281,6 +335,70 @@ def test_cyc_exp_kernel_matches_plain(cuda):
     got = kernels.cyc_exp(a, _GS_SEGMENTS)
     assert kernels.launches["cyc_exp"] == 1
     assert torch.equal(got, kernels.cyc_exp_plain(a, _GS_SEGMENTS))
+
+
+def karabina_rows(seed: int, device) -> torch.Tensor:
+    """Cyclotomic rows for the Karabina kernels: random elements, then one
+    (its compressed form is all zero: the g2 == 0 branch with a zero norm)
+    sharing a packed row with a random element, and a whole row of ones."""
+    r = random.Random(seed)
+    f = rm.rand_fq12(r)
+    t = f.frobenius_pow(6) * f.inv()
+    cyc = t.frobenius_pow(2) * t
+    one = rm.Fq12.one()
+    extra = tower.encode([cyc, one, one, one])
+    return torch.from_numpy(np.concatenate([cyclotomic_rows(6, seed), extra])).to(device)
+
+
+@pytest.mark.gpu
+def test_cyc_exp_cond_kernel_matches_plain(cuda):
+    a = torch.from_numpy(cyclotomic_rows(6, 0xF6)).to(cuda)
+    kernels.reset_launches()
+    got = kernels.cyc_exp_cond(a, _GS_SEGMENTS)
+    assert kernels.launches["cyc_exp_cond"] == 1
+    assert sum(kernels.launches.values()) == 1
+    assert torch.equal(got, kernels.cyc_exp_cond_plain(a, _GS_SEGMENTS))
+    assert torch.equal(got, kernels.cyc_exp(a, _GS_SEGMENTS))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 5])
+def test_square_run_kernels_match_plain(cuda, n):
+    a = karabina_rows(0xF7, cuda)
+    c = tower.compress_cyclotomic(a)
+    kernels.reset_launches()
+    got12, got8 = kernels.cyc_square_run(a, n), kernels.kara_square_run(c, n)
+    assert kernels.launches["cyc_square_run"] == 1
+    assert kernels.launches["kara_square_run"] == 1
+    assert sum(kernels.launches.values()) == 2
+    assert torch.equal(got12, kernels.cyc_square_run_plain(a, n))
+    assert torch.equal(got8, kernels.kara_square_run_plain(c, n))
+
+
+@pytest.mark.gpu
+def test_kara_exp_kernel_matches_plain(cuda):
+    c = tower.compress_cyclotomic(karabina_rows(0xF8, cuda))[1:].view(2, 2, 8, RC.LANES)
+    kernels.reset_launches()
+    got = kernels.kara_exp(c, (2, 0, 1, 3))
+    assert kernels.launches["kara_exp"] == 1 and sum(kernels.launches.values()) == 1
+    assert got.shape == (4, 2, 2, 8, RC.LANES)
+    assert torch.equal(got, kernels.kara_exp_plain(c, (2, 0, 1, 3)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segments", [_KARA_SEGMENTS, (0, 1, 2, 0, 1, 3)])
+def test_kara_full_kernel_matches_plain(cuda, segments):
+    """The whole Karabina exponentiation against its plain version, rows
+    with the identity (all-zero compressed state, zero norms) included, and
+    against the Granger-Scott kernel by value."""
+    a = karabina_rows(0xF9, cuda)
+    kernels.reset_launches()
+    got = kernels.kara_full(a, segments)
+    assert kernels.launches["kara_full"] == 1 and sum(kernels.launches.values()) == 1
+    assert torch.equal(got, kernels.kara_full_plain(a, segments))
+    if segments == _KARA_SEGMENTS:
+        assert tower.is_equal(got, kernels.cyc_exp(a, _GS_SEGMENTS)).all()
+        assert tower.is_one(got)[-1].all() and tower.is_one(got)[-2, 1]
 
 
 @pytest.mark.gpu
@@ -354,3 +472,15 @@ def test_kernel_wrappers_check_their_inputs(cuda):
         kernels.fq12_mul_by_014(a, a[:, :3], a[:, :2], a[:, :2])
     with pytest.raises(ValueError):
         kernels.fq12_square(a.cpu().to(cuda)[..., :64])
+    c = a[:, :8].contiguous()
+    for call in (lambda: kernels.cyc_exp_cond(a[::2], _GS_SEGMENTS),
+                 lambda: kernels.cyc_square_run(a[:, :8], 2),
+                 lambda: kernels.kara_square_run(a, 2),
+                 lambda: kernels.kara_square_run(a[:, :8], 2),
+                 lambda: kernels.kara_exp(c[::2], _KARA_SEGMENTS),
+                 lambda: kernels.kara_full(c, _KARA_SEGMENTS),
+                 lambda: kernels.kara_full(a, _KARA_SEGMENTS[:5])):
+        with pytest.raises(ValueError):
+            call()
+    with pytest.raises(TypeError):
+        kernels.kara_exp(c.to(torch.int64), _KARA_SEGMENTS)

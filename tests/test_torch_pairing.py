@@ -4,7 +4,9 @@
   * the plain Granger-Scott exponentiation (the cyc_exp kernel's reference)
     bit-identical to the Pallas cyc_exp_run kernel in interpret mode;
   * pairing equal in value to JAX's pairing (whose CPU path runs the Karabina
-    exponentiation: equal mod p, other rows) and to every KAT e_chain."""
+    exponentiation: equal mod p, other rows; under impl="karabina" the rows
+    agree too, tests/test_torch_karabina.py) and to every KAT e_chain;
+  * the impl keyword reaches the final exponentiation's powers from pairing."""
 
 import json
 import os
@@ -102,3 +104,28 @@ def test_pairing_kat_vectors():
     got = coeffs(ttw.decode(out))[: len(vectors)]
     assert got == [[int(h, 16) for h in v["e_chain"]] for v in vectors]
     assert len(got) == 9
+
+
+def test_impl_keyword_reaches_the_exponentiations(monkeypatch):
+    """pairing hands `impl` on unchanged to the five exponentiations; the
+    default, and the form of multi_pairing and pairing_check, is "segments"."""
+    seen = []
+    exp = tmpr.cyclotomic_exp
+    monkeypatch.setattr(tmpr, "cyclotomic_exp",
+                        lambda f, impl="segments": seen.append(impl) or exp(f, impl))
+    r = random.Random(0x70A2)
+    p1, q1 = rm.rand_g1(r), rm.rand_g2(r)
+    ps = tl.G1Affine.encode([p1, p1.mul(2)], device="cpu")
+    ns = tl.G1Affine.encode([p1.neg(), p1.mul(2)], device="cpu")
+    qs = tl.G2Affine.encode([q1, q1], device="cpu")
+    default = tmpr.pairing(ps, qs)
+    assert seen == ["segments"] * 5
+    kara = tmpr.pairing(ps, qs, impl="karabina_full")
+    assert ttw.is_equal(kara, default).all()
+    assert seen[5:] == ["karabina_full"] * 5
+    assert torch.equal(tmpr.multi_pairing([ps], [qs]), default)
+    ok = tmpr.pairing_check([ps, ns], [qs, qs])
+    assert ok.tolist() == [[True, False]]
+    assert seen[10:] == ["segments"] * 10
+    with pytest.raises(ValueError, match="impl"):
+        tmpr.pairing(ps, qs, impl="kara")
