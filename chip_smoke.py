@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's pairing paths on one CUDA card and hold them to
-their references.
+"""Drive the PyTorch port's pairing paths (the RNS tier's and the limb tier's)
+on one CUDA card and hold them to their references.
 
     python3 chip_smoke.py
 
@@ -25,6 +25,12 @@ Phases (any failure exits non-zero; nothing is caught):
          final exponentiation of that batch's Miller-loop output under each
          of the six forms of its powers, each equal in value to the default
          form on all 2048 (the Granger-Scott forms row for row);
+       the limb tier's `pairing` (models/pairing.py) on the same points under
+         the strategies "auto" (conv, mont_reduce and mont_mul kernels under
+         the plain tower composition) and "fused" (the four limb tower
+         kernels as well): all 2048 outputs of each against the same oracle
+         values, the frozen vectors, the two strategies equal in value; and
+         the two-term `pairing_check` under "fused";
      and time each;
   4. profile one call of each path: device-busy share and the top kernels.
 The second-to-last lines are the card's name and power limit and a JSON
@@ -47,16 +53,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from plonky2_bls12_381_pairing_torch import constants as LC
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
+from plonky2_bls12_381_pairing_torch.models import pairing as lmp
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
 from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _GS_SEGMENTS,
                                                              _KARA_SEGMENTS)
+from plonky2_bls12_381_pairing_torch.ops import cuda_build
+from plonky2_bls12_381_pairing_torch.ops import curve as lcurve
+from plonky2_bls12_381_pairing_torch.ops import fp as lfp
+from plonky2_bls12_381_pairing_torch.ops import fq6 as lfq6
+from plonky2_bls12_381_pairing_torch.ops import fq12 as lfq12
+from plonky2_bls12_381_pairing_torch.ops.kernels import mont as lmont
+from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
 from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernels, tower
 from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 
 KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "pairing_kat.json"
 TPU_KERNELS = "plonky2_bls12_381_pairing_tpu/ops/rns/pallas.py"
+TPU_LIMB_MONT = "plonky2_bls12_381_pairing_tpu/ops/pallas/mont.py"
+TPU_LIMB_TOWER = "plonky2_bls12_381_pairing_tpu/ops/pallas/tower.py"
 PORT_CSRC = "plonky2_bls12_381_pairing_torch/csrc"
 #: pairings per call and per term: the JAX package's batch per chip
 BATCH = 2048
@@ -92,6 +109,42 @@ FQ12_SQ_PRODUCTS, M014_PRODUCTS, ELL_SCALE_PRODUCTS = 12 * 3, 13 * 3, 4
 KARA_SQ_PRODUCTS = 4 * 3 + 8
 DECOMPRESS_REDC_ROWS = 4 + 1 + 1 + 2 + 2 + 2
 DECOMPRESS_PRODUCTS = (3 * 3 + 2) + 2 + 1 + 2 + 3 + (3 * 3 + 1)
+
+
+# Operation model of the limb tier, per row: a 48 x 48 convolution is 2,304
+# multiply-adds; the scan-free reduction is the truncated product by p' (the
+# 51 low columns: 1,326 multiply-adds), the product by p (51 x 48), the
+# quotient test (51) and its shift-add passes (a mask, a shift and an add on
+# each of the 100 working columns); two operations per multiply-add.
+LIMB_CONV_OPS = 2 * LC.NLIMBS * LC.NLIMBS
+
+
+def limb_reduce_ops(first_passes: int) -> int:
+    macs = LC.NRED * (LC.NRED + 1) // 2 + LC.NRED * LC.NLIMBS + LC.NRED
+    return 2 * macs + 3 * 100 * (first_passes + lmont.NPASS_M + lmont.NPASS_S)
+
+
+def limb_tower_ops(elements: int, name: str) -> int:
+    """A formula's products, the signed sums of its 12 output wides (one
+    multiply-add per product term and column) and its 12 reductions."""
+    f = ltower.formula(name)
+    combines = 2 * 95 * int(np.count_nonzero(f.outputs))
+    return elements * (f.products * LIMB_CONV_OPS + combines
+                       + 12 * limb_reduce_ops(f.first_passes))
+
+
+def random_limb_rows(rng: np.random.Generator, *shape: int) -> np.ndarray:
+    """Stored Fp rows (*shape, 48): uniform canonical digits with the top
+    limb below p's, so every row is a residue below p."""
+    rows = rng.integers(0, 256, (*shape, LC.NLIMBS), dtype=np.int32)
+    rows[..., -1] = rng.integers(0, int(LC.P_LIMBS[-1]), shape, dtype=np.int32)
+    return rows
+
+
+def pow_mont_muls(exponent: int) -> int:
+    """Products of fp.pow_static: a squaring per bit after the leading one,
+    a multiply per set bit after it."""
+    return exponent.bit_length() - 1 + bin(exponent).count("1") - 1
 
 
 def cyc_exp_ops(elements: int, segments) -> int:
@@ -259,15 +312,18 @@ def points() -> tuple[list, list]:
     return ps, qs
 
 
-def profile_call(name: str, run) -> dict:
+def profile_call(name: str, run, host_ops: bool = True) -> dict:
     """Device-busy share of one call and the kernels that take its device
-    time, from torch.profiler (CUDA kernel events only)."""
+    time, from torch.profiler (CUDA kernel events only). With host_ops False
+    the host's operator events are not recorded: a limb call's quarter of a
+    million launches make a trace whose host half takes minutes to digest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t) * 1e3
@@ -285,6 +341,14 @@ def profile_call(name: str, run) -> dict:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x "
               f"{e.key[:90]}")
     return {"device_ms": busy, "kernel_launches": n}
+
+
+_T0 = time.perf_counter()
+
+
+def mark(label: str) -> None:
+    """Where the run's time goes: seconds since the script started."""
+    print(f"[t] {time.perf_counter() - _T0:7.1f} s  {label}")
 
 
 def smi() -> str:
@@ -330,21 +394,41 @@ EXPECTED_LAUNCHES = {
     "pairing_check_2": {**_FINAL_EXP, "fq12_mul_by_014": 62 + 2 * 6,
                         "fq12_mul_by_014_square": 62},
 }
+# The limb tier. Under "auto" every product is composed of conv and
+# mont_reduce launches (None: at least one), and the Fermat inverse of the
+# final exponentiation is a chain of fused mont_mul launches; the limb tower
+# kernels stay unused. Under "fused" the Miller loop's 68 ells and 62 squares
+# and the final exponentiation's products and cyclotomic squarings (two
+# products of the easy part, then the hard part's program) are one tower
+# kernel each.
+_HP_OPS = lmp._HP_PROG[:, 0].tolist()
+_LIMB_AUTO = {"conv": None, "mont_reduce": None, "mont_mul": pow_mont_muls(rm.P - 2)}
+_LIMB_FUSED = {**_LIMB_AUTO, "limb_fq12_mul_by_014": 68, "limb_fq12_square": 62,
+               "limb_fq12_mul": 2 + _HP_OPS.count(lmp._OP_MUL),
+               "limb_fq12_cyclotomic_square": _HP_OPS.count(lmp._OP_CYCSQ)}
+EXPECTED_LAUNCHES.update({
+    "limb_pairing_auto": _LIMB_AUTO,
+    "limb_pairing_fused": _LIMB_FUSED,
+    "limb_pairing_check_2_fused": {**_LIMB_FUSED, "limb_fq12_mul_by_014": 2 * 68},
+})
 
 
 def drive(name: str, run):
-    """One call of a path with the launch counters reset just before and
-    read and checked just after."""
+    """One call of a path with the launch counters (both tiers') reset just
+    before and read and checked just after. An expected count is a number,
+    or None for a kernel that must have been launched at least once."""
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    cuda_build.reset_all_launches()
     t = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    counts = dict(kernels.launches)
-    print(f"[{name}] B={BATCH}: first call {first_s:.2f} s, launches {counts}")
-    want = {k: EXPECTED_LAUNCHES[name].get(k, 0) for k in counts}
-    assert counts == want, (name, counts, want)
+    counts = cuda_build.all_launches()
+    print(f"[{name}] B={BATCH}: first call {first_s:.2f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for k, n in counts.items():
+        want = EXPECTED_LAUNCHES[name].get(k, 0)
+        assert n > 0 if want is None else n == want, (name, k, n, want)
     return out, counts
 
 
@@ -393,6 +477,7 @@ def main() -> int:
                 if "registers" in line or "smem" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
         print(f"[card] {card}")
+        mark("built")
 
         # -- 2. kernels vs plain at the paths' shapes -------------------------
         rng = np.random.default_rng(2048)
@@ -546,6 +631,83 @@ def main() -> int:
             "bound": bound_ms(nbytes(*m_args) + len(_DO_SQUARE) * 4 + got.numel() * 4,
                               miller_ops(elements, _DO_SQUARE))}
         del coeffs, m_args, got
+
+        mark("the RNS tier's kernels held to their plain versions")
+        # the limb tier's seven kernels at the shapes its pairing gives them
+        # at B = 2048: conv on (2048, 48) component views of Fq12 rows,
+        # mont_reduce on the (2048, 12, 95) stack of one fq12.mul with its
+        # merged bounds, mont_mul on (2048, 48), the tower kernels on
+        # (2048, 12, 48) [and (2048, 6, 48)]. Small kernels are timed over
+        # four copies of their operands, 50 calls between two events.
+        lfp.set_strategy("auto")
+        la = torch.from_numpy(random_limb_rows(rng, BATCH, 12)).to(dev)
+        lb = torch.from_numpy(random_limb_rows(rng, BATCH, 12)).to(dev)
+        ld = torch.from_numpy(random_limb_rows(rng, BATCH, 6)).to(dev)
+        # weakly reduced rows (digits to 258), as the path's products are
+        la, lb = lfq12.mul(la, lb), lfq12.square(lb)
+        easy = lfq12.mul(lfq12.conjugate(la), lfq12.inv(la))
+        lcyc = lfq12.mul(lfq12.frobenius_pow(easy, 2), easy)
+        lx, ly = la[:, 3], lb[:, 7]  # (2048, 48), row stride 12 * 48
+        def limb_case(name, source, replaces, wrapper, plain, args, out_numel, ops,
+                      plain_reps=3, copies=None):
+            got = wrapper(*args)
+            err = check(name, got, plain(*args), tuple(args[0].shape))
+            copies = copies or [tuple(x.clone() if torch.is_tensor(x) else x for x in args)
+                                for _ in range(4)]
+            kern[name] = {
+                "source": source, "replaces": replaces, "max_abs_err": err,
+                "ms": time_kernel(lambda i: wrapper(*copies[i % 4]), 5, batch=50),
+                "plain_ms": time_host(lambda: plain(*args), plain_reps),
+                "bound": bound_ms(nbytes(*(x for x in args if torch.is_tensor(x)))
+                                  + out_numel * 4, ops)}
+            return got
+
+        # component views again in the copies: the same row stride
+        views = [(la.clone()[:, 3], lb.clone()[:, 7]) for _ in range(4)]
+        limb_case("conv", "mont.cu", f"{TPU_LIMB_MONT}:194", lmont.conv, lmont.conv_plain,
+                  (lx, ly), BATCH * 95, BATCH * LIMB_CONV_OPS, copies=views)
+        # a stack of steps against one operand broadcast over them (stride
+        # 0, copied by the wrapper), as the coefficient scaling passes it
+        steps = la[:, None, 0].expand(BATCH, 5, 48)
+        check("conv", lmont.conv(lb[:, :5], steps), lmont.conv_plain(lb[:, :5], steps),
+              f"{tuple(lb[:, :5].shape)} x strides {steps.stride()}")
+        # the merged 12-output reduction of one fq12.mul
+        a0, a1, b0, b1 = lfq12.c0(la), lfq12.c1(la), lfq12.c0(lb), lfq12.c1(lb)
+        w0, w1 = lfq6.mul_wide(a0, b0), lfq6.mul_wide(a1, b1)
+        w01 = lfq6.mul_wide(lfp.add(a0, a1), lfp.add(b0, b1))
+        wides = [w for tri in (lfq6.add_wide(w0, lfq6.mul_by_nonresidue_wide(w1)),
+                               lfq6.sub_wide(lfq6.sub_wide(w01, w0), w1))
+                 for pair in tri for w in pair]
+        stack = torch.stack([w.cols for w in wides], dim=-2)
+        r_lo, r_hi = min(w.col_lo for w in wides), max(w.col_hi for w in wides)
+        got = limb_case("mont_reduce", "mont.cu", f"{TPU_LIMB_MONT}:215", lmont.mont_reduce,
+                        lmont.mont_reduce_plain, (stack, r_lo, r_hi), BATCH * 12 * 48,
+                        BATCH * 12 * limb_reduce_ops(lmont.first_pass_count(r_lo, r_hi)))
+        assert torch.equal(got, lfq12.mul(la, lb)), "the stack is fq12.mul's"
+        got = limb_case("mont_mul", "mont.cu", f"{TPU_LIMB_MONT}:236", lmont.mont_mul,
+                        lmont.mont_mul_plain, (lx, ly), BATCH * 48,
+                        BATCH * (LIMB_CONV_OPS + limb_reduce_ops(
+                            lmont.first_pass_count(0, lmont.MUL_COL_HI))), copies=views)
+        wide = lfp.conv(lx, ly)
+        same = torch.equal(got, lmont.mont_reduce(wide.cols, wide.col_lo, wide.col_hi))
+        print(f"[mont_mul] rows identical to mont_reduce(conv): {same}")
+        assert same and wide.col_hi == lmont.MUL_COL_HI
+        for name, line, args in (("mul", 484, (la, lb)), ("square", 489, (la,)),
+                                 ("mul_by_014", 494, (la, ld)),
+                                 ("cyclotomic_square", 500, (lcyc,))):
+            got = limb_case(f"limb_fq12_{name}", "limb_tower.cu", f"{TPU_LIMB_TOWER}:{line}",
+                            getattr(ltower, f"fq12_{name}"),
+                            getattr(ltower, f"fq12_{name}_plain"), args, BATCH * 12 * 48,
+                            limb_tower_ops(BATCH, name), plain_reps=2)
+            # equal in value to the composition path (other rows)
+            composed = {"mul": lfq12.mul, "square": lfq12.square,
+                        "cyclotomic_square": lfq12.cyclotomic_square}.get(name)
+            if composed is not None:
+                assert bool(lfq12.is_equal(got, composed(*args)).all()), name
+            assert int(got.max()) <= LC.SEMI_DIG and int(got.min()) >= 0
+        del la, lb, ld, lcyc, easy, stack, wides, w0, w1, w01, got, steps, views
+        torch.cuda.empty_cache()
+        mark("the limb tier's kernels held to their plain versions")
         for name, k in kern.items():
             print(f"[{name}] {k['ms']:.4f} ms, plain {k['plain_ms']:.2f} ms, bound "
                   f"{k['bound'][0]:.4f} ms by {k['bound'][1]}")
@@ -641,18 +803,74 @@ def main() -> int:
         assert torch.equal(ref, out), "final_exponentiation(miller_loop_fused) is pairing"
         del ref, got
 
+        mark("the RNS tier's paths driven")
+        # (e) the limb tier's pairing on the same points, under both
+        # strategies, against the oracle values computed for (a)
+        lp_dev = lcurve.G1Affine.encode(ps, device=dev)
+        lq_dev = lcurve.G2Affine.encode(qs, device=dev)
+        lkp = lcurve.G1Affine.encode(kp, device=dev)
+        lkq = lcurve.G2Affine.encode(kq, device=dev)
+
+        def limb_run(strategy, fn):
+            def run():
+                lfp.set_strategy(strategy)
+                try:
+                    return fn()
+                finally:
+                    lfp.set_strategy("auto")
+            return run
+
+        limb_runs = {f"limb_pairing_{strategy}":
+                     limb_run(strategy, lambda: lmp.pairing(lp_dev, lq_dev))
+                     for strategy in ("auto", "fused")}
+        limb_out = {}
+        for name, run in limb_runs.items():
+            limb_out[name], path_counts[name] = drive(name, run)
+            assert limb_out[name].shape == (BATCH, 12, LC.NLIMBS)
+            assert limb_out[name].dtype == torch.int32
+            got_rows = lfp.decode(limb_out[name])
+            bad = [i for i in range(BATCH) if list(got_rows[i]) != want_rows[i]]
+            print(f"[{name}] vs oracle: {BATCH - len(bad)}/{BATCH} bit-exact")
+            assert not bad, f"{name} disagrees with the oracle at {bad[:8]}"
+            kout = limb_run(name.rsplit("_", 1)[1], lambda: lmp.pairing(lkp, lkq))()
+            nkat = sum(g == w for g, w in zip(list(lfq12.decode(kout)), kwant))
+            print(f"[{name}] KAT e_chain: {nkat}/{len(kat)}")
+            assert nkat == len(kat)
+        n_eq = int(lfq12.is_equal(*limb_out.values()).sum().item())
+        print(f"[limb_pairing] auto and fused equal in value on {n_eq}/{BATCH}, rows "
+              f"identical: {torch.equal(*limb_out.values())}")
+        assert n_eq == BATCH
+        del limb_out
+
+        ln_dev = lp_dev.neg()
+        name = "limb_pairing_check_2_fused"
+        limb_runs[name] = limb_run("fused", lambda: lmp.pairing_check(
+            [lp_dev, ln_dev], [lq_dev, lq_dev]))
+        ok, path_counts[name] = drive(name, limb_runs[name])
+        ok = ok.cpu().numpy()
+        print(f"[{name}] e(P,Q) e(-P,Q) == 1 on {int(ok.sum())}/{BATCH}")
+        assert ok.shape == (BATCH,) and ok.all()
+        ok2 = limb_run("fused", lambda: lmp.pairing_check(
+            [lp_dev, lp_dev], [lq_dev, lq_dev]))().cpu().numpy()
+        print(f"[{name}] e(P,Q)^2 == 1 only at {np.flatnonzero(ok2).tolist()}")
+        assert np.flatnonzero(ok2).tolist() == [5, 6]
+
+        mark("the limb tier's paths driven")
         runs = {
             "pairing": lambda: mpr.pairing(p_dev, q_dev),
             "multi_pairing_1": lambda: mpr.multi_pairing([p_dev], [q_dev]),
             "pairing_check_2": lambda: mpr.pairing_check([p_dev, n_dev], [q_dev, q_dev]),
             "pairing_karabina": lambda: mpr.pairing(p_dev, q_dev, impl="karabina"),
             **exp_runs,
+            **limb_runs,
         }
         timed = {name: time_path(name, run, card) for name, run in runs.items()}
+        mark("paths timed")
 
         # -- 4. where the time goes ------------------------------------------
         for name, run in runs.items():
-            timed[name].update(profile_call(name, run))
+            timed[name].update(profile_call(name, run, host_ops=name not in limb_runs))
+            mark(f"profiled {name}")
         t = timed["pairing"]
         print(json.dumps({"pairing": {**t, "pairings_per_s": t["per_s"]}}))
         print(json.dumps({"pairing_split": {
@@ -663,17 +881,24 @@ def main() -> int:
             name = f"final_exp_{impl}"
             print(json.dumps({name: {**timed[name], "launches": {
                 k: v for k, v in path_counts[name].items() if v}}}))
+        for name in limb_runs:
+            print(json.dumps({name: {**timed[name], "launches": {
+                k: v for k, v in path_counts[name].items() if v}}}))
 
-    for name in kernels.launches:
+    all_kernels = cuda_build.all_launches()
+    for name in all_kernels:
         assert sum(c[name] for c in path_counts.values()) > 0, (
             f"no path launched {name}")
     order = ["cyc_exp", "cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp",
              "kara_full", "pow_static", "miller_run", "fq12_mul", "fq12_square",
-             "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square"]
-    assert sorted(order) == sorted(kern) == sorted(kernels.launches)
+             "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square",
+             "conv", "mont_reduce", "mont_mul", "limb_fq12_mul", "limb_fq12_square",
+             "limb_fq12_mul_by_014", "limb_fq12_cyclotomic_square"]
+    assert sorted(order) == sorted(kern) == sorted(all_kernels)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PORT_CSRC}/{kern[name]['source']}",
-         "replaces": f"{TPU_KERNELS}:{kern[name]['replaces']}",
+         "replaces": (kern[name]["replaces"] if isinstance(kern[name]["replaces"], str)
+                      else f"{TPU_KERNELS}:{kern[name]['replaces']}"),
          "launches": sum(c[name] for c in path_counts.values()),
          "launches_by_path": {p: c[name] for p, c in path_counts.items()},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],

@@ -1,6 +1,5 @@
 """The RNS tier's hand-written CUDA kernels (the JAX package's
-ops/rns/pallas.py on the pairing's paths), their plain PyTorch versions, the
-nvcc build and the ctypes binding.
+ops/rns/pallas.py on the pairing's paths) and their plain PyTorch versions.
 
   cyc_exp(a, segments)            <- pallas.cyc_exp_run      (csrc/cyc_exp.cu)
   cyc_exp_cond(a, segments)       <- pallas.cyc_exp_run in its one-loop build,
@@ -23,33 +22,28 @@ kernel for a tensor on a CUDA device; there is no fallback between the two.
 plain tower formulas (tower.<op>_plain), never the dispatching ones, so a
 plain run on a card launches none of these kernels.
 
-The kernels are built at first use with nvcc into shared libraries with a
-plain C interface, one per source, in build/torch_kernels/<hash>/ at the
-repository root, keyed by a hash of the CUDA sources and the generated table
-header.
+The kernels are built at first use and bound by ops/cuda_build.py, which the
+limb tier's kernels (ops/kernels/) share.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-from . import fp, kernel_tables, lines, tower
+from .. import cuda_build
+# the shared build and binding under the names this module has always had
+from ..cuda_build import build, build_log  # noqa: F401
+from ..cuda_build import call as _call
+from ..cuda_build import check as _check
+from ..cuda_build import row_view as _row_view  # noqa: F401
+from ..cuda_build import rows as _rows
+from . import fp, lines, tower
 
 LANES = fp.LANES
 
-_CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_PTR, _INT, _STRIDE = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PTR, _INT, _STRIDE = cuda_build.PTR, cuda_build.INT, cuda_build.STRIDE
 #: kernel name -> (source, C entry point, its argument types). A tensor
 #: operand with a row stride is (_PTR, _STRIDE); every entry ends in the
 #: output pointer, the row count and the stream, but for the exponentiation
@@ -85,10 +79,9 @@ _KERNELS = {
     "fq12_cyclotomic_square": ("tower_ops.cu", "fq12_cyclotomic_square_launch",
                                [_PTR, _STRIDE, _PTR, _INT, _PTR]),
 }
-_SOURCES = sorted({src for src, _, _ in _KERNELS.values()})
-
 #: Kernel launches per wrapper since the last reset_launches().
 launches = {name: 0 for name in _KERNELS}
+cuda_build.register(_KERNELS, launches)
 
 
 def reset_launches() -> None:
@@ -221,83 +214,8 @@ def miller_run_plain(f0: torch.Tensor, coeffs_stepmajor: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Build and binding
+# Launch helpers
 # ---------------------------------------------------------------------------
-
-#: kernel name -> its bound C entry point
-_LIBS: dict = {}
-#: nvcc's report (ptxas register and shared-memory use) of the last build, by
-#: source.
-build_log: dict[str, str] = {}
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
-                           "CUDA toolkit's nvcc")
-    return path
-
-
-def build() -> Path:
-    """Build every source (in parallel, one nvcc each) unless the build
-    directory for the current sources already holds its library; load them."""
-    header = kernel_tables.header_text()
-    h = hashlib.sha256(header.encode())
-    for src in sorted(_CSRC.iterdir()):
-        h.update(src.name.encode() + src.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    out_dir = _BUILD_ROOT / h.hexdigest()[:16]
-    out_dir.mkdir(parents=True, exist_ok=True)
-    hdr = out_dir / "rns_tables.h"
-    if not hdr.exists() or hdr.read_text() != header:
-        tmp = out_dir / f"rns_tables.h.{os.getpid()}"
-        tmp.write_text(header)
-        os.replace(tmp, hdr)
-    procs = {}
-    for src in _SOURCES:
-        lib = out_dir / f"lib{Path(src).stem}.so"
-        if lib.exists():
-            continue
-        tmp = out_dir / f"{lib.name}.{os.getpid()}"
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-I", str(out_dir), "-I", str(_CSRC),
-               "-o", str(tmp), str(_CSRC / src)]
-        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, lib)
-    for src, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        build_log[src] = log
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-        os.replace(tmp, lib)
-    libs = {src: ctypes.CDLL(str(out_dir / f"lib{Path(src).stem}.so"))
-            for src in _SOURCES}
-    for name, (src, entry, argtypes) in _KERNELS.items():
-        fn = getattr(libs[src], entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = fn
-    return out_dir
-
-
-def _entry(name: str):
-    if name not in _LIBS:
-        build()
-    return _LIBS[name]
-
-
-def _check(a: torch.Tensor, tail: tuple, contiguous: bool = True) -> None:
-    if a.device.type != "cuda":
-        raise ValueError(f"expected a CPU or CUDA tensor, got {a.device}")
-    if a.dtype != torch.int32:
-        raise TypeError(f"expected int32 rows, got {a.dtype}")
-    if tuple(a.shape[a.dim() - len(tail):]) != tail:
-        raise ValueError(f"expected shape (..., {', '.join(map(str, tail))}), "
-                         f"got {tuple(a.shape)}")
-    if contiguous and not a.is_contiguous():
-        raise ValueError("expected a contiguous tensor")
-
 
 _ARGS: dict = {}
 
@@ -310,50 +228,11 @@ def _int_arg(key, values, device: torch.device) -> torch.Tensor:
     return _ARGS[k]
 
 
-def _call(name: str, device: torch.device, *args) -> None:
-    """Launch kernel `name` on `device`'s current stream (the entry's last
-    argument) and count it."""
-    fn = _entry(name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
-
-
 def _launch(name: str, a: torch.Tensor, rows: int, arg: torch.Tensor,
             n_arg: int) -> torch.Tensor:
     out = torch.empty_like(a)
     _call(name, a.device, a.data_ptr(), out.data_ptr(), rows, arg.data_ptr(), n_arg)
     return out
-
-
-def _row_view(t: torch.Tensor, batch: tuple, tail: tuple) -> tuple[torch.Tensor, int]:
-    """`t` (batch..., *tail), broadcast over `batch`, as the kernels read an
-    operand: a (rows, *tail) tensor to keep alive and its row stride in
-    elements. The tail must be dense and the batch axes must merge into one
-    stride, as they do for a contiguous tensor, for a slice of the tail's
-    first axis of one, and for a broadcast over the whole batch (stride 0).
-    Any other layout is copied first (one read and one write of the
-    operand)."""
-    t = t.expand(*batch, *tail)
-    k = len(tail)
-    dense = t.stride()[t.dim() - k:] == tuple(
-        math.prod(tail[i + 1:]) for i in range(k))
-    v = None
-    if dense:
-        try:
-            v = t.view(math.prod(batch), *tail)
-        except RuntimeError:  # the batch axes do not merge
-            pass
-    if v is None:
-        v = t.contiguous().view(math.prod(batch), *tail)
-    return v, v.stride(0)
-
-
-def _rows(t: torch.Tensor, batch: tuple, tail: tuple) -> tuple[torch.Tensor, int]:
-    _check(t, tail, contiguous=False)
-    return _row_view(t, batch, tail)
 
 
 def _tower_op(name: str, a: torch.Tensor, operands=(), skip=None) -> torch.Tensor:
