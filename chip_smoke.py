@@ -4,10 +4,16 @@ on one CUDA card and hold them to their references.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build the CUDA kernels from csrc/ and report nvcc's resource use;
+  1. build the CUDA kernels from csrc/ and report nvcc's resource use; for
+     the kernels on the tensor-core REDC (cyc_exp.cu, tower_ops.cu) each
+     kernel's registers, shared memory and spills (none allowed) and the
+     IMMA instructions in their SASS;
   2. run each kernel on the card at the shapes the paths give it and hold it
-     bit for bit to its plain PyTorch version; time both, and count the
-     kernel's bound from the inputs;
+     bit for bit to its plain PyTorch version (the tensor-core kernels also
+     at ragged tile counts and with an operand of row stride 0); time both,
+     count the kernel's bound from the inputs (the REDC base extensions at
+     the tensor cores' u8 rate, and at the int32 rate beside it), and time
+     conv's one PyTorch yardstick, a grouped float64 conv1d;
   3. drive the paths at B = 2048 over distinct points k*G1, k*G2 (two
      of them at infinity), the launch counters reset just before each and
      checked just after:
@@ -43,12 +49,14 @@ from __future__ import annotations
 import json
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,7 +74,7 @@ from plonky2_bls12_381_pairing_torch.ops import fq6 as lfq6
 from plonky2_bls12_381_pairing_torch.ops import fq12 as lfq12
 from plonky2_bls12_381_pairing_torch.ops.kernels import mont as lmont
 from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
-from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernels, tower
+from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernel_tables, kernels, tower
 from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 
@@ -83,17 +91,43 @@ SMALL = 16
 # Peak rates of one H100 SXM at its full 700 W limit (NVIDIA data sheet):
 # HBM at 3.35 TB/s; int32 multiply-adds on 64 INT32 lanes per SM x 132 SMs at
 # the 1.98 GHz boost clock, counted as two operations each, i.e. half the
-# 67 TFLOP/s float32 rate.
+# 67 TFLOP/s float32 rate; dense int8 tensor-core products at 1,979 Tops/s.
 HBM_BYTES_PER_S = 3.35e12
 CLOCK_HZ = 1.98e9
 INT32_OPS_PER_S = 2 * 64 * 132 * CLOCK_HZ
+U8_TC_OPS_PER_S = 1.979e15
+
+
+class Work(NamedTuple):
+    """The operations of an RNS kernel's work: int32 operations outside the
+    REDC base extensions, and the base extensions' multiply-adds, which are
+    matrix products the card can run on its tensor cores (3 u8 plane
+    products of 2 operations each per multiply-add, csrc/rns_redc_tc.cuh)."""
+
+    int_ops: int
+    ext_macs: int
+
+    def __add__(self, other: "Work") -> "Work":
+        return Work(self.int_ops + other.int_ops, self.ext_macs + other.ext_macs)
+
+    def __mul__(self, k: int) -> "Work":
+        return Work(self.int_ops * k, self.ext_macs * k)
+
+    __rmul__ = __mul__
+
+
+def lane_work(products: int) -> Work:
+    """`products` channel products, one operation per lane on the 63
+    channel lanes."""
+    return Work(products * 63, 0)
+
 
 # Operation model of one REDC row (one element's component): the two base
 # extensions' multiply-adds (31 base-A sigmas onto 31 base-B lanes, the
 # redundant lane and the alpha column; 31 base-B sigmas onto 31 base-A lanes
-# and the beta column), two operations each, plus five per-lane products
-# (sigma, two for sigma', two for the output) on the 63 channel lanes.
-REDC_OPS = 2 * (31 * 33 + 31 * 32) + 5 * 63
+# and the beta column), plus five per-lane products (sigma, two for sigma',
+# two for the output) on the 63 channel lanes.
+REDC_ROW = Work(5 * 63, 31 * 33 + 31 * 32)
 #: channel products (one per lane) of a Granger-Scott squaring (9 Fq2
 #: products of 3 each, 12 lifts) and of a full Fq12 product (18 Fq2 products)
 CYC_SQ_PRODUCTS, FQ12_MUL_PRODUCTS = 9 * 3 + 12, 18 * 3
@@ -147,24 +181,23 @@ def pow_mont_muls(exponent: int) -> int:
     return exponent.bit_length() - 1 + bin(exponent).count("1") - 1
 
 
-def cyc_exp_ops(elements: int, segments) -> int:
+def cyc_exp_ops(elements: int, segments) -> Work:
     squares = sum(n for n, _ in segments)
     muls = sum(1 for _, m in segments if m)
-    per_sq = 12 * REDC_OPS + CYC_SQ_PRODUCTS * 63
-    per_mul = 12 * REDC_OPS + FQ12_MUL_PRODUCTS * 63
-    return elements * (squares * per_sq + muls * per_mul)
+    return (squares * tower_op_ops(elements, 12, CYC_SQ_PRODUCTS)
+            + muls * tower_op_ops(elements, 12, FQ12_MUL_PRODUCTS))
 
 
-def tower_op_ops(elements: int, redc_rows: int, products: int) -> int:
-    return elements * (redc_rows * REDC_OPS + products * 63)
+def tower_op_ops(elements: int, redc_rows: int, products: int) -> Work:
+    return elements * (redc_rows * REDC_ROW + lane_work(products))
 
 
-def kara_chain_ops(elements: int, squarings: int) -> int:
+def kara_chain_ops(elements: int, squarings: int) -> Work:
     """An 8-row REDC and four Fq2 products per compressed squaring."""
     return squarings * tower_op_ops(elements, 8, KARA_SQ_PRODUCTS)
 
 
-def kara_full_ops(elements: int, segments) -> int:
+def kara_full_ops(elements: int, segments) -> Work:
     """The least work for the value: the chain, the decompression of one
     snapshot per segment, the snapshots' product, and the inversion of all
     norms of the call shared by Montgomery's trick (three Fp products per
@@ -172,11 +205,11 @@ def kara_full_ops(elements: int, segments) -> int:
     n = len(segments)
     return (kara_chain_ops(elements, sum(segments))
             + n * tower_op_ops(elements, DECOMPRESS_REDC_ROWS, DECOMPRESS_PRODUCTS)
-            + 3 * (n * elements - 1) * (REDC_OPS + 63) + pow_ops(1, rm.P - 2)
+            + 3 * (n * elements - 1) * (REDC_ROW + lane_work(1)) + pow_ops(1, rm.P - 2)
             + (n - 1) * tower_op_ops(elements, 12, FQ12_MUL_PRODUCTS))
 
 
-def miller_ops(elements: int, flags) -> int:
+def miller_ops(elements: int, flags) -> Work:
     """Per step a 4-row and a 12-row REDC with the scaling's and the sparse
     product's lane products; per set flag a 12-row REDC with a squaring's."""
     steps, squares = len(flags), int(sum(flags))
@@ -197,8 +230,8 @@ def pow_steps(exponent: int) -> int:
     return len(bits) + sum(bits)
 
 
-def pow_ops(elements: int, exponent: int) -> int:
-    return elements * pow_steps(exponent) * (REDC_OPS + 63)
+def pow_ops(elements: int, exponent: int) -> Work:
+    return elements * pow_steps(exponent) * (REDC_ROW + lane_work(1))
 
 
 # Latency model of one dependent pow step, redc(mul(acc, .)), on its
@@ -215,10 +248,18 @@ POW_STEP_CYC = (2 * BARRETT_CYC + 4 * SYNC_CYC + 2 * (SMEM_CYC + 31 * IMAD_CYC)
                 + (SMEM_CYC + IMAD_CYC + BARRETT_CYC))
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, ops) -> tuple[float, str, float | None]:
+    """The least time of the work, what bounds it, and for an RNS kernel
+    (ops a Work) the bound with the base extensions priced at the int32 rate
+    instead (the figure of earlier runs). Limb kernels give int32 operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    if isinstance(ops, Work):
+        t_ops = max(ops.int_ops / INT32_OPS_PER_S, 6 * ops.ext_macs / U8_TC_OPS_PER_S) * 1e3
+        int32_only = max(t_bytes, (ops.int_ops + 2 * ops.ext_macs) / INT32_OPS_PER_S * 1e3)
+    else:
+        t_ops, int32_only = ops / INT32_OPS_PER_S * 1e3, None
+    return (t_ops, "operations", int32_only) if t_ops >= t_bytes else (t_bytes, "bytes",
+                                                                       int32_only)
 
 
 def time_kernel(fn, reps: int, batch: int = 1) -> float:
@@ -351,10 +392,46 @@ def mark(label: str) -> None:
     print(f"[t] {time.perf_counter() - _T0:7.1f} s  {label}")
 
 
+#: the sources whose kernels run the tensor-core REDC (csrc/rns_redc_tc.cuh)
+TC_SOURCES = ("cyc_exp.cu", "tower_ops.cu")
+
+
+def ptxas_use(log: str) -> dict[str, str]:
+    """ptxas's report per kernel of one source's build log (nvcc -Xptxas -v):
+    its registers, shared memory and spills."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = re.search(r"\d+([A-Za-z]\w*?_kernel)", mangled).group(1)
+            for flag, arg in (("ILb1E", "<true>"), ("ILb0E", "<false>")):
+                name += arg if flag in mangled else ""
+            out[name] = ""
+        elif name is not None and ("spill" in line or "registers" in line):
+            use = line.split(":", 1)[-1] if "ptxas" in line else line
+            out[name] = f"{out[name]} {use.strip()}".strip()
+    return out
+
+
+def sass_count(lib: Path, opcode: str) -> int:
+    """The SASS instructions of a built library whose opcode starts with
+    `opcode`."""
+    cuobjdump = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return sum(f" {opcode}" in line.split(";")[0] for line in sass.splitlines())
+
+
 def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def ragged_rows(rows: int) -> tuple[int, ...]:
+    """Packed row counts below `rows` that end a tensor-core kernel's grid
+    on a partial tile: 1, 3, a tile and one row, and `rows` - 1."""
+    return tuple(n for n in (1, 3, kernel_tables.TC_ROWS + 1, rows - 1) if n < rows)
 
 
 def final_exp_launches(impl: str) -> dict:
@@ -476,6 +553,16 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
+        for src in TC_SOURCES:
+            report = ptxas_use(kernels.build_log[src])
+            assert report, f"no ptxas report for {src}"
+            for entry, use in report.items():
+                print(f"[ptxas] {src} {entry}: {use}")
+                assert " 0 bytes spill stores" in use and " 0 bytes spill loads" in use, (
+                    f"{src} {entry} spills")
+            imma = sass_count(out_dir / f"lib{Path(src).stem}.so", "IMMA")
+            print(f"[sass] {src}: {imma} IMMA (tensor-core integer products)")
+            assert imma > 0, f"{src} runs no tensor-core product"
         print(f"[card] {card}")
         mark("built")
 
@@ -490,6 +577,13 @@ def main() -> int:
                         kernels.cyc_exp_plain(cyc_in, _GS_SEGMENTS), tuple(cyc_in.shape))
         cyc_bound = bound_ms(2 * cyc_in.numel() * 4,
                              cyc_exp_ops(RC.PACK * cyc_in.shape[0], _GS_SEGMENTS))
+        # and at ragged tile counts (the tensor-core kernels' last tile
+        # masked): one row, a partial tile, a whole tile and one more, and
+        # the path's rows but for one
+        for n in ragged_rows(rows):
+            cyc_err = max(cyc_err, check("cyc_exp", kernels.cyc_exp(cyc_in[:n], _GS_SEGMENTS),
+                                         kernels.cyc_exp_plain(cyc_in[:n], _GS_SEGMENTS),
+                                         f"rows {n}:"))
         kern["cyc_exp"] = {
             "source": "cyc_exp.cu", "replaces": 812, "max_abs_err": cyc_err,
             "ms": time_kernel(lambda i: kernels.cyc_exp(cyc_in, _GS_SEGMENTS), 10),
@@ -596,6 +690,13 @@ def main() -> int:
             if name == "fq12_mul_by_014_square":  # and without the mask
                 err = max(err, check(name, wrapper(*args[:4]), plain(*args[:4]),
                                      "no skip,"))
+            for n in ragged_rows(rows):
+                # the leading operand's first row broadcast over the n rows
+                # (row stride 0), the rest sliced
+                part = tuple(x[:n] for x in args)
+                bcast = (args[0][:1].expand(n, *args[0].shape[1:]), *part[1:])
+                for case, note in ((part, f"rows {n}:"), (bcast, f"rows {n}, stride 0:")):
+                    err = max(err, check(name, wrapper(*case), plain(*case), note))
             if name == "fq12_mul":
                 # the stacked tail product of the final exponentiation, one
                 # operand broadcast (stride 0) as the chain's products with one
@@ -666,6 +767,17 @@ def main() -> int:
         views = [(la.clone()[:, 3], lb.clone()[:, 7]) for _ in range(4)]
         limb_case("conv", "mont.cu", f"{TPU_LIMB_MONT}:194", lmont.conv, lmont.conv_plain,
                   (lx, ly), BATCH * 95, BATCH * LIMB_CONV_OPS, copies=views)
+        # the one PyTorch call that computes conv's function, its yardstick
+        # (the port never calls it): a float64 convolution grouped by row,
+        # the second operand flipped, padded to the 95 columns, exact below
+        # 2^53; on float64 operands made before the timing, four copies
+        lib_ops = [(x.double()[None], y.double().flip(-1)[:, None]) for x, y in views]
+        lib_conv = lambda x, w: torch.nn.functional.conv1d(x, w, padding=LC.NLIMBS - 1,
+                                                           groups=BATCH)[0]
+        assert torch.equal(lib_conv(*lib_ops[0]).to(torch.int32), lmont.conv(*views[0]))
+        kern["conv"]["library_ms"] = time_kernel(lambda i: lib_conv(*lib_ops[i % 4]), 5,
+                                                 batch=50)
+        del lib_ops
         # a stack of steps against one operand broadcast over them (stride
         # 0, copied by the wrapper), as the coefficient scaling passes it
         steps = la[:, None, 0].expand(BATCH, 5, 48)
@@ -709,8 +821,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         mark("the limb tier's kernels held to their plain versions")
         for name, k in kern.items():
+            extra = "" if k["bound"][2] is None else f" [int32 only {k['bound'][2]:.4f}]"
+            extra += f", library {k['library_ms']:.4f} ms" if "library_ms" in k else ""
             print(f"[{name}] {k['ms']:.4f} ms, plain {k['plain_ms']:.2f} ms, bound "
-                  f"{k['bound'][0]:.4f} ms by {k['bound'][1]}")
+                  f"{k['bound'][0]:.4f} ms by {k['bound'][1]}{extra}")
 
         # -- 3. the paths, end to end ----------------------------------------
         # (a) pairing: fused prepare + Miller loop
@@ -903,7 +1017,11 @@ def main() -> int:
          "launches_by_path": {p: c[name] for p, c in path_counts.items()},
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound"][0],
-         "bound_by": kern[name]["bound"][1], "library_ms": None}
+         "bound_by": kern[name]["bound"][1],
+         # the RNS kernels' bound with the base extensions at the int32 rate
+         **({"bound_int32_ms": kern[name]["bound"][2]}
+            if kern[name]["bound"][2] is not None else {}),
+         "library_ms": kern[name].get("library_ms")}
         for name in order]}
     print(card)
     print(json.dumps(report))

@@ -9,60 +9,76 @@
 // ops/rns/kernels.py cyc_exp_plain; the rows agree bit for bit.
 //
 // What bounds it on an H100: integer issue. Per packed row, |BLS_X| costs 63
-// squarings and 5 products, each one 12-row REDC (two 31-term cross-lane dot
-// products per lane and component) plus the lane arithmetic of the Fq2
-// formulas; the data moved is only the 12 x 128 int32 input and output of
-// each row. The design keeps the whole state of a row on chip for the whole
-// exponent: one block per packed row, one thread per lane, the base and the
-// accumulator (12 + 12 residues) in registers, the base-extension blocks and
-// the cross-lane sums in shared memory. Nothing but the final row goes back
-// to device memory.
+// squarings and 5 products, each one 12-row REDC plus the lane arithmetic of
+// the Fq2 formulas; the data moved is only the 12 x 128 int32 input and
+// output of each row. The REDC's two base extensions (31 x 33 and 31 x 32
+// multiply-adds per component) are matrix products, which the design runs
+// on the tensor cores (rns_redc_tc.cuh): a block holds a tile of TILE packed
+// rows for the whole exponent, one thread per lane and row, the accumulator
+// (12 residues) in registers (the base is read again from device memory for
+// each of the 5 products), the u8 plane tables, the bias rows and the sigma
+// planes and extension sums in shared memory. What is
+// left on the integer pipe is the lane arithmetic (Barrett reductions of
+// the Fq2 products and of REDC steps 1, 3 and 5). Nothing but the final row
+// goes back to device memory.
 //
 // cyc_exp_cond is the kernel's other form: one loop over the exponent's
 // levels, each a squaring and, where the level's flag is set, the product
 // with the base. It replaces the same TPU function in its one-loop build
 // (_build_cyc_exp_cond); same operations in the same order, so the same
-// rows. Its plain version is ops/rns/kernels.py cyc_exp_cond_plain.
+// rows. Its plain version is ops/rns/kernels.py cyc_exp_cond_plain. It keeps
+// the one-row blocks and the per-lane dot products of rns_common.cuh.
 
+#include "rns_redc_tc.cuh"
 #include "rns_tower.cuh"
 
 namespace {
 
 using namespace rns;
 
-// One block per packed row; a and out are (rows, 12, 128) int32;
-// segs holds nseg (n_squares, multiply_after) pairs.
-__global__ void __launch_bounds__(LANES)
-    cyc_exp_kernel(const int* __restrict__ a, int* __restrict__ out,
+// packed rows per block of cyc_exp
+constexpr int TILE = RNS_TC_ROWS;
+constexpr int THREADS = TILE * LANES;
+
+// One block per TILE packed rows (the last tile masked); a and out are
+// (rows, 12, 128) int32; segs holds nseg (n_squares, multiply_after) pairs.
+__global__ void __launch_bounds__(THREADS, 2)
+    cyc_exp_kernel(const int* __restrict__ a, int* __restrict__ out, int rows,
                    const int* __restrict__ segs, int nseg) {
-  __shared__ Smem<12> s;
-  load_tables(s);
+  __shared__ TcSmem<TILE> s;
+  __shared__ int bias[2][12][SUB];  // RNS_CYC_BIAS, RNS_MUL_BIAS
+  load_tc_tables(s);
+  for (int i = threadIdx.x; i < 12 * SUB; i += THREADS) {
+    bias[0][i / SUB][i % SUB] = RNS_CYC_BIAS[i / SUB][i % SUB];
+    bias[1][i / SUB][i % SUB] = RNS_MUL_BIAS[i / SUB][i % SUB];
+  }
   __syncthreads();
 
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x % LANES;
   const int l = lane % SUB;
   const Lane c = load_lane(l);
-  int cb[12], mb[12];
+  const long long row = static_cast<long long>(blockIdx.x) * TILE + threadIdx.x / LANES;
+  const bool live = row < rows;
+  const int* base = a + row * 12 * LANES + lane;
+  int acc[12];
 #pragma unroll
-  for (int k = 0; k < 12; ++k) {
-    cb[k] = RNS_CYC_BIAS[k][l];
-    mb[k] = RNS_MUL_BIAS[k][l];
-  }
-
-  const size_t row = blockIdx.x;
-  int f[12], acc[12];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) {
-    f[k] = a[(row * 12 + k) * LANES + lane];
-    acc[k] = f[k];
-  }
+  for (int k = 0; k < 12; ++k) acc[k] = live ? base[k * LANES] : 0;
   for (int g = 0; g < nseg; ++g) {
     const int n_sq = segs[2 * g];
-    for (int i = 0; i < n_sq; ++i) cyc_square<1>(acc, c, s, cb);
-    if (segs[2 * g + 1]) fq12_mul<1>(acc, f, c, s, mb);
-  }
+    for (int i = 0; i < n_sq; ++i) cyc_square<SUB>(acc, c, s, &bias[0][0][l]);
+    if (segs[2 * g + 1]) {
+      // the base is read again for each of the few products (from the L2
+      // cache): held in registers for the whole exponent it would spill
+      int f[12];
 #pragma unroll
-  for (int k = 0; k < 12; ++k) out[(row * 12 + k) * LANES + lane] = acc[k];
+      for (int k = 0; k < 12; ++k) f[k] = live ? base[k * LANES] : 0;
+      fq12_mul<SUB>(acc, f, c, s, &bias[1][0][l]);
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < 12; ++k) out[(row * 12 + k) * LANES + lane] = acc[k];
+  }
 }
 
 // flags holds one multiply flag per level.
@@ -109,8 +125,8 @@ extern "C" int cyc_exp_cond_launch(const int* a, int* out, int rows, const int* 
 extern "C" int cyc_exp_launch(const int* a, int* out, int rows, const int* segs, int nseg,
                               void* stream) {
   if (rows > 0) {
-    cyc_exp_kernel<<<rows, LANES, 0, static_cast<cudaStream_t>(stream)>>>(a, out, segs,
-                                                                          nseg);
+    cyc_exp_kernel<<<(rows + TILE - 1) / TILE, THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a, out, rows, segs, nseg);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,17 +7,21 @@
 //
 // A bias argument points at the thread's entry of the first of 12 rows that
 // lie BS ints apart: a register array (BS = 1) or a table of rns_tables.h at
-// the thread's lane (BS = SUB).
+// the thread's lane (BS = SUB). The Fq12 formulas take the reduction's shared
+// memory as a type S and end in the redc that S selects: Smem<12> for the
+// one-row blocks of rns_common.cuh, TcSmem<R> for the tensor-core tiles of
+// rns_redc_tc.cuh (cyc_exp and tower_ops).
 #pragma once
 
 #include "rns_common.cuh"
 
 namespace rns {
 
-// Bias rows, then the stacked reduction, in place.
-template <int BS>
+// Bias rows, then the stacked reduction, in place: rns_common.cuh's or
+// rns_redc_tc.cuh's redc, by the type of s.
+template <int BS, class S>
 __device__ __forceinline__ void bias_redc(int (&a)[12], const F2 (&outs)[6], const Lane& c,
-                                          Smem<12>& s, const int* bias) {
+                                          S& s, const int* bias) {
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     a[2 * i] = add_m(outs[i].c0, bias[(2 * i) * BS], c);
@@ -37,8 +41,8 @@ __device__ __forceinline__ void fp4_square(F2 a, F2 b, F2& r0, F2& r1, const Lan
   r1 = t2;
 }
 
-template <int BS>
-__device__ __forceinline__ void cyc_square(int (&a)[12], const Lane& c, Smem<12>& s,
+template <int BS, class S>
+__device__ __forceinline__ void cyc_square(int (&a)[12], const Lane& c, S& s,
                                            const int* bias) {
   const F2 z0{a[0], a[1]}, z4{a[2], a[3]}, z3{a[4], a[5]};
   const F2 z2{a[6], a[7]}, z1{a[8], a[9]}, z5{a[10], a[11]};
@@ -132,9 +136,9 @@ __device__ __forceinline__ void split(const int (&a)[12], F2 (&a0)[3], F2 (&a1)[
 }
 
 // Fq12 = Fq6[w]/(w^2 - v) Karatsuba product (tower.mul): a <- a * b.
-template <int BS>
+template <int BS, class S>
 __device__ __forceinline__ void fq12_mul(int (&a)[12], const int (&b)[12], const Lane& c,
-                                         Smem<12>& s, const int* bias) {
+                                         S& s, const int* bias) {
   F2 a0[3], a1[3], b0[3], b1[3], as[3], bs[3];
   split(a, a0, a1);
   split(b, b0, b1);
@@ -161,8 +165,8 @@ __device__ __forceinline__ void fq12_mul(int (&a)[12], const int (&b)[12], const
 
 // Complex squaring (tower.square): with ab = a0 a1 and st = (a0 + a1)(a0 + v a1),
 // out0 = st - ab - v ab, out1 = 2 ab.
-template <int BS>
-__device__ __forceinline__ void fq12_square(int (&a)[12], const Lane& c, Smem<12>& s,
+template <int BS, class S>
+__device__ __forceinline__ void fq12_square(int (&a)[12], const Lane& c, S& s,
                                             const int* bias) {
   F2 a0[3], a1[3];
   split(a, a0, a1);
@@ -187,9 +191,9 @@ __device__ __forceinline__ void fq12_square(int (&a)[12], const Lane& c, Smem<12
 // Sparse product with (d0 + d1 v) + (d4 v) w (tower.mul_by_014): with
 // aa = a0 (d0 + d1 v), bb = a1 (d4 v), t1 = (a0 + a1)(d0 + (d1 + d4) v),
 // out0 = v bb + aa, out1 = t1 - aa - bb.
-template <int BS>
+template <int BS, class S>
 __device__ __forceinline__ void fq12_mul_by_014(int (&a)[12], F2 d0, F2 d1, F2 d4,
-                                                const Lane& c, Smem<12>& s,
+                                                const Lane& c, S& s,
                                                 const int* bias) {
   F2 a0[3], a1[3];
   split(a, a0, a1);

@@ -33,8 +33,9 @@ _KERNELS: dict = {}
 #: source -> its loaded library; kernel name -> its bound C entry point
 _LOADED: dict = {}
 _LIBS: dict = {}
-#: nvcc's report (ptxas register and shared-memory use) of the last build, by
-#: source.
+#: nvcc's report (ptxas register and shared-memory use) of the build that made
+#: each source's library, by source; kept beside the library, so that a build
+#: directory reused by a later process still has it.
 build_log: dict[str, str] = {}
 
 
@@ -85,6 +86,8 @@ def build() -> Path:
     for src in sources:
         lib = out_dir / f"lib{Path(src).stem}.so"
         if lib.exists():
+            report = lib.with_suffix(".log")
+            build_log[src] = report.read_text() if report.exists() else ""
             continue
         tmp = out_dir / f"{lib.name}.{os.getpid()}"
         cmd = [_nvcc(), *_NVCC_FLAGS, "-I", str(out_dir), "-I", str(_CSRC),
@@ -99,6 +102,7 @@ def build() -> Path:
         if proc.returncode != 0:
             failed = failed or f"nvcc failed for {src}:\n{log}"
         else:
+            lib.with_suffix(".log").write_text(log)
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError(failed)

@@ -9,7 +9,9 @@ value besides the formula itself, and both come from here:
     tracking of the plain formulas decides statically (a different k gives
     a row equal mod p but not identical). They are read off by running the
     plain formulas once on a dummy element.
-Every row is slot-local (64 lanes): both packed slots share it.
+Every row is slot-local (64 lanes): both packed slots share it. The
+tensor-core REDC (csrc/rns_redc_tc.cuh) takes the two base-extension blocks
+as u8 planes in the layout of its matrix products (tc_planes).
 """
 
 from __future__ import annotations
@@ -57,6 +59,35 @@ def static_biases() -> dict[str, list[int]]:
     }
 
 
+#: The tensor-core REDC's products run over K = 32: the 31 channels of one
+#: base and a zero pad.
+TC_K = 32
+#: Step 2's columns: the slot lanes B_LO..ALPHA_LANE (base B, the redundant
+#: lane, the alpha column), padded to whole 8-column tiles; step 4's: the
+#: base-A lanes and the beta column (ALPHA_LANE).
+TC_T1_LANES = tuple(range(RC.B_LO, RC.SUB))
+TC_N1 = 40
+TC_T2_LANES = tuple(range(RC.A_LO, RC.A_HI)) + (RC.ALPHA_LANE,)
+TC_N2 = 32
+#: Packed rows per block (a tile) of the kernels on the tensor-core REDC:
+#: the sigma matrix has 24 rows per packed row, so an even count makes it
+#: whole 16-row tiles.
+TC_ROWS = 4
+
+
+def tc_planes(block: np.ndarray, lanes, n_cols: int) -> np.ndarray:
+    """(3, n_cols, TC_K) uint8: at [p, n, k] plane p (lo, hi, lo + hi of the
+    7/6-bit split, as fp._ext_matmul) of block[k, lanes[n]], the extension
+    block's row k (channel k of the base) and column lanes[n]; zero in the
+    pad row k = 31 and the pad columns."""
+    t = np.zeros((n_cols, TC_K), dtype=np.int64)
+    t[:len(lanes), :RC.NCH] = block[:, list(lanes)].T
+    lo, hi = t & ((1 << RC.PLANE_BITS) - 1), t >> RC.PLANE_BITS
+    planes = np.stack([lo, hi, lo + hi])
+    assert planes.max() < 256
+    return planes.astype(np.uint8)
+
+
 #: C name of each bias table.
 BIAS_TABLES = {"cyc": "RNS_CYC_BIAS", "mul": "RNS_MUL_BIAS", "sq": "RNS_SQ_BIAS",
                "m014": "RNS_M014_BIAS", "ell": "RNS_ELL_BIAS",
@@ -84,6 +115,9 @@ def tables() -> dict[str, np.ndarray]:
         # from base-A rows, T2 from base-B rows
         "RNS_T1A": RC.T1[RC.A_LO:RC.A_HI, _SLOT],
         "RNS_T2B": RC.T2[RC.B_LO:RC.B_HI, _SLOT],
+        # the same blocks as the tensor-core REDC's u8 plane operands
+        "RNS_T1_PLANES": tc_planes(RC.T1[RC.A_LO:RC.A_HI, _SLOT], TC_T1_LANES, TC_N1),
+        "RNS_T2_PLANES": tc_planes(RC.T2[RC.B_LO:RC.B_HI, _SLOT], TC_T2_LANES, TC_N2),
         # the Karabina decompression: the rows of k*p a stored zero can
         # equal (every lane but ALPHA_LANE is a channel), the stored one and
         # 4^-1, and 4p for the negation 4p - x
@@ -124,6 +158,11 @@ def header_text() -> str:
         f"#define RNS_ALPHA_LANE {RC.ALPHA_LANE}",
         f"#define RNS_ALPHA_T {RC.ALPHA_T}",
         f"#define RNS_BETA_T {RC.BETA_T}",
+        f"#define RNS_PLANE_BITS {RC.PLANE_BITS}",
+        f"#define RNS_TC_K {TC_K}",
+        f"#define RNS_TC_N1 {TC_N1}",
+        f"#define RNS_TC_N2 {TC_N2}",
+        f"#define RNS_TC_ROWS {TC_ROWS}",
         "// flat Fq12 component of each compressed Karabina component",
         f"#define RNS_KARA_IDX {{{', '.join(map(str, tower._KARA_IDX))}}}",
         "// RNS_*_BIAS: residues of k*p, k the nonneg bias multiple of each REDC",
@@ -133,7 +172,8 @@ def header_text() -> str:
         "",
     ]
     for name, arr in tables().items():
-        ctype = "float" if arr.dtype == np.float32 else "int"
+        ctype = {np.dtype(np.float32): "float",
+                 np.dtype(np.uint8): "unsigned char"}.get(arr.dtype, "int")
         dims = "".join(f"[{d}]" for d in arr.shape)
         out.append(f"__device__ const {ctype} {name}{dims} = {_c_values(arr)};")
         out.append("")

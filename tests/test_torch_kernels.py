@@ -199,7 +199,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def _header_arrays(text: str) -> dict:
     out = {}
-    pat = re.compile(r"__device__ const (int|float) (\w+)((?:\[\d+\])+) = \{([^}]*)\};")
+    pat = re.compile(r"__device__ const (int|float|unsigned char) (\w+)((?:\[\d+\])+) = "
+                     r"\{([^}]*)\};")
     for ctype, name, dims, body in pat.findall(text):
         shape = tuple(int(d) for d in re.findall(r"\d+", dims))
         vals = [v.strip() for v in body.replace("\n", " ").split(",") if v.strip()]
@@ -235,6 +236,19 @@ def test_kernel_header_matches_tables():
     blk[RC.B_LO:RC.B_HI] = 0
     assert not blk.any()
     assert np.array_equal(RC.T1[RC.SUB:, RC.SUB:], RC.T1[:RC.SUB, :RC.SUB])
+    # the same blocks as the tensor-core REDC's u8 planes, [plane, column, k]:
+    # step 2's columns are the lanes B_LO..ALPHA_LANE, step 4's the base-A
+    # lanes and ALPHA_LANE; zero pads
+    t1 = RC.T1[RC.A_LO:RC.A_HI, RC.B_LO:RC.SUB].T
+    t2 = RC.T2[RC.B_LO:RC.B_HI, list(range(RC.A_LO, RC.A_HI)) + [RC.ALPHA_LANE]].T
+    for name, blk, cols in (("RNS_T1_PLANES", t1, 40), ("RNS_T2_PLANES", t2, 32)):
+        arr = arrs[name]
+        assert arr.shape == (3, cols, 32), name
+        lo, hi = arr[0, :len(blk), :RC.NCH], arr[1, :len(blk), :RC.NCH]
+        assert lo.max() < 1 << RC.PLANE_BITS and hi.max() < 1 << (13 - RC.PLANE_BITS)
+        assert np.array_equal(lo + (hi << RC.PLANE_BITS), blk), name
+        assert np.array_equal(arr[2], arr[0] + arr[1]), name
+        assert not arr[:, len(blk):].any() and not arr[:, :, RC.NCH:].any(), name
     biases = kernel_tables.static_biases()
     rows = {"cyc": 12, "mul": 12, "sq": 12, "m014": 12, "ell": 4, "kara": 8,
             "knum": 4, "kdinv": 2, "kg1": 2, "kg0": 2}
@@ -256,7 +270,10 @@ def test_kernel_header_matches_tables():
             in kernel_tables.header_text())
     assert f"#define RNS_ALPHA_LANE {RC.ALPHA_LANE}\n" in kernel_tables.header_text()
     for name, value in (("RNS_NCH", RC.NCH), ("RNS_ALPHA_T", RC.ALPHA_T),
-                        ("RNS_BETA_T", RC.BETA_T), ("RNS_B_LO", RC.B_LO)):
+                        ("RNS_BETA_T", RC.BETA_T), ("RNS_B_LO", RC.B_LO),
+                        ("RNS_PLANE_BITS", RC.PLANE_BITS), ("RNS_TC_K", 32),
+                        ("RNS_TC_N1", 40), ("RNS_TC_N2", 32),
+                        ("RNS_TC_ROWS", kernel_tables.TC_ROWS)):
         assert f"#define {name} {value}\n" in kernel_tables.header_text()
 
 
@@ -328,9 +345,33 @@ def cuda():
     return torch.device("cuda")
 
 
+#: Packed row counts of the tensor-core kernels' tests: one row, a partial
+#: tile, a whole tile and one row more, and the paths' 1024 but for one.
+TC_ROWS = (1, 3, kernel_tables.TC_ROWS + 1, 1023)
+
+
+def device_rows(n: int, seed: int, device, cyclotomic: bool = False) -> torch.Tensor:
+    """n packed Fq12 rows of random elements, mapped on the device through
+    the final exponentiation's easy part where asked (cyclotomic), as the
+    paths hand them to the kernels."""
+    rng = np.random.default_rng(seed)
+    ints = np.empty((2 * n, 12), dtype=object)
+    for idx in np.ndindex(ints.shape):
+        ints[idx] = int.from_bytes(rng.bytes(48), "little") % rm.P
+    f = torch.from_numpy(fp.encode(ints)).to(device)
+    if not cyclotomic:
+        return f
+    t = tower.mul(tower.conjugate(f), tower.inv(f))
+    return tower.mul(tower.frobenius_pow(t, 2), t).contiguous()
+
+
 @pytest.mark.gpu
-def test_cyc_exp_kernel_matches_plain(cuda):
-    a = torch.from_numpy(cyclotomic_rows(6, 0xE5)).to(cuda)
+@pytest.mark.parametrize("rows", TC_ROWS)
+def test_cyc_exp_kernel_matches_plain(cuda, rows):
+    """The tensor-core kernel at ragged tile counts (its last tile masked)."""
+    a = (torch.from_numpy(cyclotomic_rows(2 * rows, 0xE5)).to(cuda) if rows < 8
+         else device_rows(rows, 0xE5, cuda, cyclotomic=True))
+    assert a.shape == (rows, 12, RC.LANES)
     kernels.reset_launches()
     got = kernels.cyc_exp(a, _GS_SEGMENTS)
     assert kernels.launches["cyc_exp"] == 1
@@ -415,7 +456,10 @@ def test_pow_kernel_matches_plain(cuda):
                                 "fq12_mul_by_014", "fq12_mul_by_014_square"])
 def test_tower_kernel_matches_plain(cuda, op):
     """Each per-op kernel against its plain formula, with operands the paths
-    hand it: a broadcast one, slices of a wider stack, two batch axes."""
+    hand it: a broadcast one, slices of a wider stack, two batch axes; and
+    at ragged tile counts, with an operand broadcast over the rows (row
+    stride 0) and, for the product, a stack of more tiles than the card
+    holds blocks at once."""
     f = torch.from_numpy(fq12_rows(12, 0xF0)).to(cuda).view(2, 3, 12, RC.LANES)
     g = torch.from_numpy(cyclotomic_rows(12, 0xF1)).to(cuda).view(2, 3, 12, RC.LANES)
     d = torch.from_numpy(np.concatenate(
@@ -425,19 +469,43 @@ def test_tower_kernel_matches_plain(cuda, op):
     skip = torch.zeros((2, 3, RC.LANES), dtype=torch.int32, device=cuda)
     skip[0, 1, RC.SUB:] = 1
     skip[1, 2, :RC.SUB] = 1
+    plain = {"fq12_mul": tower.mul_plain, "fq12_square": tower.square_plain,
+             "fq12_cyclotomic_square": tower.cyclotomic_square_plain,
+             "fq12_mul_by_014": tower.mul_by_014_plain,
+             "fq12_mul_by_014_square": tower.mul_by_014_square_plain}[op]
     cases = {
-        "fq12_mul": [((f, g), tower.mul_plain), ((f, tower.one((2, 3), cuda)),
-                                                 tower.mul_plain),
-                     ((f[0, 1], g), tower.mul_plain)],
-        "fq12_square": [((f,), tower.square_plain)],
-        "fq12_cyclotomic_square": [((g,), tower.cyclotomic_square_plain)],
-        "fq12_mul_by_014": [((f, d0, d1, d4), tower.mul_by_014_plain)],
-        "fq12_mul_by_014_square": [((f, d0, d1, d4), tower.mul_by_014_square_plain),
-                                   ((f, d0, d1, d4, skip),
-                                    tower.mul_by_014_square_plain)],
+        "fq12_mul": [(f, g), (f, tower.one((2, 3), cuda)), (f[0, 1], g)],
+        "fq12_square": [(f,)],
+        "fq12_cyclotomic_square": [(g,)],
+        "fq12_mul_by_014": [(f, d0, d1, d4)],
+        "fq12_mul_by_014_square": [(f, d0, d1, d4), (f, d0, d1, d4, skip)],
     }[op]
+    big_f = device_rows(max(TC_ROWS), 0xFA, cuda)
+    big_g = device_rows(max(TC_ROWS), 0xFB, cuda, cyclotomic=True)
+    big_d = device_rows(max(TC_ROWS), 0xFC, cuda)[:, :6]
+    for n in TC_ROWS:
+        a, b, dn = big_f[:n], big_g[:n], big_d[:n]
+        e0, e1, e4 = dn[:, 0:2], dn[:, 2:4], dn[:, 4:6]
+        # one element's row broadcast over the n rows: row stride 0
+        a0 = big_f[n - 1:n].expand(n, 12, RC.LANES)
+        e0b = dn[:1, 0:2].expand(n, 2, RC.LANES)
+        sk = torch.zeros((n, RC.LANES), dtype=torch.int32, device=cuda)
+        sk[n // 2, :RC.SUB] = 1
+        sk[n - 1, RC.SUB:] = 1
+        cases += {
+            "fq12_mul": [(a, b), (a, tower.one((n,), cuda)), (a0, b)],
+            "fq12_square": [(a,), (a0,)],
+            "fq12_cyclotomic_square": [(b,), (b[:1].expand(n, 12, RC.LANES),)],
+            "fq12_mul_by_014": [(a, e0, e1, e4), (a, e0b, e1, e4)],
+            "fq12_mul_by_014_square": [(a, e0, e1, e4, sk), (a0, e0b, e1, e4, sk)],
+        }[op]
+    if op == "fq12_mul":
+        # the final exponentiation's stacked tail product against a
+        # broadcast one: 3 x 1023 rows, more tiles than one wave of blocks
+        st = torch.stack([big_f, big_g, big_f.flip(0)])
+        cases += [(st, tower.one((3, max(TC_ROWS)), cuda)), (st, big_g)]
     kernels.reset_launches()
-    for args, plain in cases:
+    for args in cases:
         got = getattr(kernels, op)(*args)
         want = plain(*args)
         assert got.shape == want.shape and torch.equal(got, want)
