@@ -5,24 +5,27 @@ on one CUDA card and hold them to their references.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from csrc/ and report nvcc's resource use; for
-     the kernels on the tensor-core REDC (cyc_exp.cu, tower_ops.cu) each
-     kernel's registers, shared memory and spills (none allowed) and the
-     IMMA instructions in their SASS;
+     the kernels on the tensor-core REDC (cyc_exp.cu, tower_ops.cu,
+     miller.cu) each kernel's registers, shared memory and spills (none
+     allowed) and the IMMA instructions in their SASS;
   2. run each kernel on the card at the shapes the paths give it and hold it
      bit for bit to its plain PyTorch version (the tensor-core kernels also
-     at ragged tile counts and with an operand of row stride 0); time both,
+     at ragged tile counts and with an operand of row stride 0; the Miller
+     kernels on the run's own points, miller_run with one and two terms);
+     time both,
      count the kernel's bound from the inputs (the REDC base extensions at
      the tensor cores' u8 rate, and at the int32 rate beside it), and time
      conv's one PyTorch yardstick, a grouped float64 conv1d;
   3. drive the paths at B = 2048 over distinct points k*G1, k*G2 (two
      of them at infinity), the launch counters reset just before each and
      checked just after:
-       `pairing` (fused prepare+Miller): all 2048 outputs against the
+       `pairing` (fused prepare+Miller, the miller_fused kernel): all 2048
+         outputs against the
          exact-integer oracle (utils/refmodel.py, in a process pool started
          at the beginning) and the frozen vectors of
          tests/vectors/pairing_kat.json;
-       `multi_pairing` with one term (split prepare, the miller_run kernel):
-         row for row the output of `pairing`;
+       `multi_pairing` with one term (the prepare_g2_lines and miller_run
+         kernels): row for row the output of `pairing`;
        `pairing_check` with two terms: [P, -P] x [Q, Q] true everywhere,
          [P, P] x [Q, Q] true only where an input is at infinity; and a small
          `multi_pairing` batch of unrelated points against the oracle;
@@ -66,7 +69,7 @@ from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models import pairing as lmp
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
 from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _GS_SEGMENTS,
-                                                             _KARA_SEGMENTS)
+                                                             _IS_ADD, _KARA_SEGMENTS)
 from plonky2_bls12_381_pairing_torch.ops import cuda_build
 from plonky2_bls12_381_pairing_torch.ops import curve as lcurve
 from plonky2_bls12_381_pairing_torch.ops import fp as lfp
@@ -80,6 +83,7 @@ from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 
 KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "pairing_kat.json"
 TPU_KERNELS = "plonky2_bls12_381_pairing_tpu/ops/rns/pallas.py"
+TPU_PAIRING_RNS = "plonky2_bls12_381_pairing_tpu/models/pairing_rns.py"
 TPU_LIMB_MONT = "plonky2_bls12_381_pairing_tpu/ops/pallas/mont.py"
 TPU_LIMB_TOWER = "plonky2_bls12_381_pairing_tpu/ops/pallas/tower.py"
 PORT_CSRC = "plonky2_bls12_381_pairing_torch/csrc"
@@ -209,12 +213,41 @@ def kara_full_ops(elements: int, segments) -> Work:
             + (n - 1) * tower_op_ops(elements, 12, FQ12_MUL_PRODUCTS))
 
 
-def miller_ops(elements: int, flags) -> Work:
-    """Per step a 4-row and a 12-row REDC with the scaling's and the sparse
-    product's lane products; per set flag a 12-row REDC with a squaring's."""
+def miller_ops(elements: int, flags, terms: int = 1) -> Work:
+    """Per step and term a 4-row and a 12-row REDC with the scaling's and the
+    sparse product's lane products; per set flag a 12-row REDC with a
+    squaring's."""
     steps, squares = len(flags), int(sum(flags))
-    return (steps * tower_op_ops(elements, 4 + 12, ELL_SCALE_PRODUCTS + M014_PRODUCTS)
+    return (terms * steps * tower_op_ops(elements, 4 + 12,
+                                         ELL_SCALE_PRODUCTS + M014_PRODUCTS)
             + squares * tower_op_ops(elements, 12, FQ12_SQ_PRODUCTS))
+
+
+#: (REDC rows, channel products) of the line steps, counted from the plain
+#: formulas (ops/rns/lines.py), by scale mode. doubling_step: stage 1 eight
+#: rows and 4 Fq2 products, stage 2 ten rows and 6, stage 3 two rows and 1,
+#: with scale=(py, px) four more rows and their 4 products. addition_step:
+#: stages A-E 6 + 4 + 6 + 8 + 6 rows and 3 + 2 + 4 + 4 + 2 Fq2 products with
+#: 8 lifts in stage D; with scale, c0 and c1 join stage D (12 rows) and
+#: stage E's rows become the 4 scaling products.
+DBL_STEP = {False: (20, 11 * 3), True: (24, 11 * 3 + 4)}
+ADD_STEP = {False: (30, 15 * 3 + 8), True: (34, 15 * 3 + 8 + 4)}
+
+
+def line_ops(elements: int, is_add, scaled: bool) -> Work:
+    """The line steps of a schedule (one is_add flag per step)."""
+    n_add = int(sum(is_add))
+    dbl, add = DBL_STEP[scaled], ADD_STEP[scaled]
+    return ((len(is_add) - n_add) * tower_op_ops(elements, *dbl)
+            + n_add * tower_op_ops(elements, *add))
+
+
+def miller_fused_ops(elements: int, is_add, do_square) -> Work:
+    """The scaled line steps, then per step the sparse product's 12-row REDC
+    and lane products, and per set flag a squaring."""
+    return (line_ops(elements, is_add, True)
+            + len(is_add) * tower_op_ops(elements, 12, M014_PRODUCTS)
+            + int(sum(do_square)) * tower_op_ops(elements, 12, FQ12_SQ_PRODUCTS))
 
 
 def nbytes(*tensors) -> int:
@@ -393,7 +426,7 @@ def mark(label: str) -> None:
 
 
 #: the sources whose kernels run the tensor-core REDC (csrc/rns_redc_tc.cuh)
-TC_SOURCES = ("cyc_exp.cu", "tower_ops.cu")
+TC_SOURCES = ("cyc_exp.cu", "tower_ops.cu", "miller.cu")
 
 
 def ptxas_use(log: str) -> dict[str, str]:
@@ -460,17 +493,18 @@ def final_exp_launches(impl: str) -> dict:
 _FINAL_EXP = final_exp_launches("segments")
 EXPECTED_LAUNCHES = {
     **{f"final_exp_{impl}": final_exp_launches(impl) for impl in mpr.EXP_IMPLS},
-    "pairing_karabina": {**final_exp_launches("karabina"), "fq12_mul_by_014": 68,
-                         "fq12_square": 62},
-    # fused prepare+Miller: 68 ells, 62 squares
-    "pairing": {**_FINAL_EXP, "fq12_mul_by_014": 68, "fq12_square": 62},
-    # one term: the whole Miller loop is one kernel
-    "multi_pairing_1": {**_FINAL_EXP, "miller_run": 1},
-    # two terms: per uniform step an ell and an ell+square, per squareless
-    # step two ells
-    "pairing_check_2": {**_FINAL_EXP, "fq12_mul_by_014": 62 + 2 * 6,
-                        "fq12_mul_by_014_square": 62},
+    # the fused prepare+Miller loop is one kernel
+    "pairing_karabina": {**final_exp_launches("karabina"), "miller_fused": 1},
+    "pairing": {**_FINAL_EXP, "miller_fused": 1},
+    # one prepare kernel per term, one Miller loop kernel for all terms
+    "multi_pairing_1": {**_FINAL_EXP, "prepare_g2_lines": 1, "miller_run": 1},
+    "pairing_check_2": {**_FINAL_EXP, "prepare_g2_lines": 2, "miller_run": 1},
 }
+#: Kernels that no path launches: the Miller loops' ell and square, which
+#: the Miller kernels now do inside (tower.mul_by_014 / square /
+#: mul_by_014_square keep them for their other callers); phase 2 holds them
+#: to their plain versions all the same.
+OFF_PATH = ("fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square")
 # The limb tier. Under "auto" every product is composed of conv and
 # mont_reduce launches (None: at least one), and the Fermat inverse of the
 # final exponentiation is a chain of fused mont_mul launches; the limb tower
@@ -714,24 +748,66 @@ def main() -> int:
                 "bound": bound_ms(nbytes(*args) + args[0].numel() * 4,
                                   tower_op_ops(elements, redc_rows, products))}
 
-        # miller_run on the run's own points (two inputs at infinity)
+        # the Miller kernels on the run's own points (two inputs at
+        # infinity), at the paths' shapes: prepare_g2_lines and miller_fused
+        # on the operands of pairing's fused loop, miller_run with the one
+        # term of multi_pairing_1 and the two of pairing_check_2; each also
+        # at the ragged row counts
         p_dev = G1Affine.encode(ps, device=dev)
         q_dev = G2Affine.encode(qs, device=dev)
-        coeffs = mpr.prepare_g2_stepmajor(q_dev)
-        skip = ((p_dev.infinity != 0) | (q_dev.infinity != 0)).to(torch.int32)
+        n_dev = G1Affine.encode([p.neg() for p in ps], device=dev)
+        fused = mpr._fused_args(p_dev, q_dev)  # f0, R, Q, py, px, skip, flags
+        f0, g2, skip = fused[0], fused[1:6], fused[8]
         assert int(skip.sum().item()) == 2 * RC.SUB
-        m_args = (tower.one((rows,), dev), coeffs, p_dev.y, p_dev.x, skip)
-        got = kernels.miller_run(*m_args, _DO_SQUARE)
-        err = check("miller_run", got, kernels.miller_run_plain(*m_args, _DO_SQUARE),
-                    f"coeffs {tuple(coeffs.shape)}")
+
+        def ragged(name, wrapper, plain, args, shape_note):
+            """Check at the paths' rows and at the ragged counts: the row
+            operands cut to n rows (contiguous copies of the step-major
+            coefficients), the flags as they are."""
+            got = wrapper(*args)
+            err = check(name, got, plain(*args), shape_note)
+            for n in ragged_rows(rows):
+                cut = tuple(
+                    [x[:, :n].contiguous() if x.dim() == 5 else x[:n] for x in a]
+                    if isinstance(a, list) else a[:n] if torch.is_tensor(a) else a
+                    for a in args)
+                err = max(err, check(name, wrapper(*cut), plain(*cut), f"rows {n}:"))
+            return got, err
+
+        coeffs, err = ragged("prepare_g2_lines", kernels.prepare_g2_lines,
+                             kernels.prepare_g2_lines_plain, (*g2, _IS_ADD),
+                             f"R, Q {tuple(g2[0].shape)}")
+        kern["prepare_g2_lines"] = {
+            "source": "miller.cu", "replaces": f"{TPU_PAIRING_RNS}:60", "max_abs_err": err,
+            "ms": time_kernel(lambda i: kernels.prepare_g2_lines(*g2, _IS_ADD), 5),
+            "plain_ms": time_host(lambda: kernels.prepare_g2_lines_plain(*g2, _IS_ADD), 2),
+            "bound": bound_ms(nbytes(*g2) + len(_IS_ADD) * 4 + coeffs.numel() * 4,
+                              line_ops(elements, _IS_ADD, False))}
+        got, err = ragged("miller_fused", kernels.miller_fused, kernels.miller_fused_plain,
+                          fused, f"R, Q {tuple(g2[0].shape)}, f0 strides {f0.stride()}")
+        kern["miller_fused"] = {
+            "source": "miller.cu", "replaces": f"{TPU_PAIRING_RNS}:413", "max_abs_err": err,
+            "ms": time_kernel(lambda i: kernels.miller_fused(*fused), 5),
+            "plain_ms": time_host(lambda: kernels.miller_fused_plain(*fused), 2),
+            "bound": bound_ms(nbytes(*fused[:9]) + len(fused[9]) * 4 + got.numel() * 4,
+                              miller_fused_ops(elements, _IS_ADD, _DO_SQUARE))}
+        skip_n = ((n_dev.infinity != 0) | (q_dev.infinity != 0)).to(torch.int32)
+        m_args = {t: (f0, [coeffs] * t, [p_dev.y, n_dev.y][:t], [p_dev.x, n_dev.x][:t],
+                      [skip, skip_n][:t], _DO_SQUARE) for t in (1, 2)}
+        err = 0
+        for t, args in m_args.items():
+            err = max(err, ragged("miller_run", kernels.miller_run, kernels.miller_run_plain,
+                                  args, f"{t} x coeffs {tuple(coeffs.shape)}")[1])
+        m_ms = {t: time_kernel(lambda i, a=args: kernels.miller_run(*a), 5)
+                for t, args in m_args.items()}
+        print(f"[miller_run] {m_ms[1]:.4f} ms with one term, {m_ms[2]:.4f} ms with two")
         kern["miller_run"] = {
-            "source": "miller.cu", "replaces": 1008, "max_abs_err": err,
-            "ms": time_kernel(lambda i: kernels.miller_run(*m_args, _DO_SQUARE), 5),
-            "plain_ms": time_host(
-                lambda: kernels.miller_run_plain(*m_args, _DO_SQUARE), 2),
-            "bound": bound_ms(nbytes(*m_args) + len(_DO_SQUARE) * 4 + got.numel() * 4,
+            "source": "miller.cu", "replaces": 1008, "max_abs_err": err, "ms": m_ms[1],
+            "plain_ms": time_host(lambda: kernels.miller_run_plain(*m_args[1]), 2),
+            "bound": bound_ms(nbytes(f0, coeffs, p_dev.y, p_dev.x, skip)
+                              + len(_DO_SQUARE) * 4 + got.numel() * 4,
                               miller_ops(elements, _DO_SQUARE))}
-        del coeffs, m_args, got
+        del coeffs, m_args, got, fused, g2
 
         mark("the RNS tier's kernels held to their plain versions")
         # the limb tier's seven kernels at the shapes its pairing gives them
@@ -859,7 +935,6 @@ def main() -> int:
         assert same, "single-term multi_pairing and pairing give different rows"
 
         # (c) pairing_check with two terms of B points each
-        n_dev = G1Affine.encode([p.neg() for p in ps], device=dev)
         ok, path_counts["pairing_check_2"] = drive(
             "pairing_check_2", lambda: mpr.pairing_check([p_dev, n_dev], [q_dev, q_dev]))
         ok = ok.reshape(-1)[:BATCH].cpu().numpy()
@@ -1001,10 +1076,11 @@ def main() -> int:
 
     all_kernels = cuda_build.all_launches()
     for name in all_kernels:
-        assert sum(c[name] for c in path_counts.values()) > 0, (
-            f"no path launched {name}")
+        launched = sum(c[name] for c in path_counts.values())
+        assert launched == 0 if name in OFF_PATH else launched > 0, (name, launched)
     order = ["cyc_exp", "cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp",
-             "kara_full", "pow_static", "miller_run", "fq12_mul", "fq12_square",
+             "kara_full", "pow_static", "miller_run", "miller_fused", "prepare_g2_lines",
+             "fq12_mul", "fq12_square",
              "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square",
              "conv", "mont_reduce", "mont_mul", "limb_fq12_mul", "limb_fq12_square",
              "limb_fq12_mul_by_014", "limb_fq12_cyclotomic_square"]

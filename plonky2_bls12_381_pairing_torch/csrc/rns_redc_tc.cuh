@@ -28,6 +28,14 @@
 
 #include "rns_common.cuh"
 
+// A build of these sources for the host CPU (tests/torch_cuda_emu.py)
+// defines RNS_HOST_EMU: it brings its own extend, the same integer sums
+// without the tensor cores, and its RNS_REDC_RECORD logs every REDC's
+// inputs and outputs.
+#ifndef RNS_HOST_EMU
+#define RNS_REDC_RECORD(x, first)
+#endif
+
 namespace rns {
 
 constexpr int TC_K = RNS_TC_K;    // channels of one base and a zero pad
@@ -81,6 +89,9 @@ __device__ __forceinline__ uint32_t ld4(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+#ifdef RNS_HOST_EMU
+#include "rns_emu_extend.h"
+#else
 // d = a (16 x 32, u8, row) * b (32 x 8, u8, col) on the tensor cores.
 __device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
@@ -124,6 +135,8 @@ __device__ __forceinline__ void extend(const unsigned char (&sig)[3][M][TC_PITCH
   }
 }
 
+#endif  // RNS_HOST_EMU
+
 // K <= 12 stacked reductions of the thread's row (fp.redc, steps 1-4), as
 // redc of rns_common.cuh: x[k] holds the lane's residue of X_k (value in
 // [0, MA*p)); on return, the canonical residue of the stored element. Every
@@ -135,6 +148,7 @@ __device__ __forceinline__ void extend(const unsigned char (&sig)[3][M][TC_PITCH
 template <int K, int R>
 __device__ __forceinline__ void redc(int (&x)[K], const Lane& c, TcSmem<R>& s) {
   static_assert(K <= 12, "the tile holds 12 components");
+  RNS_REDC_RECORD(x, true);
   const int lane = threadIdx.x % LANES;
   const int l = lane % SUB;
   const int m0 = (threadIdx.x / LANES * PACK + lane / SUB) * 12;
@@ -183,6 +197,7 @@ __device__ __forceinline__ void redc(int (&x)[K], const Lane& c, TcSmem<R>& s) {
       x[k] = barrett(e[l] - beta * c.c_mbmod, c);
     }
   }
+  RNS_REDC_RECORD(x, false);
 }
 
 }  // namespace rns

@@ -10,7 +10,7 @@
 // the thread's lane (BS = SUB). The Fq12 formulas take the reduction's shared
 // memory as a type S and end in the redc that S selects: Smem<12> for the
 // one-row blocks of rns_common.cuh, TcSmem<R> for the tensor-core tiles of
-// rns_redc_tc.cuh (cyc_exp and tower_ops).
+// rns_redc_tc.cuh (cyc_exp, tower_ops, miller).
 #pragma once
 
 #include "rns_common.cuh"

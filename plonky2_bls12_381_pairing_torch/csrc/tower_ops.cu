@@ -28,8 +28,7 @@
 
 #include <algorithm>
 
-#include "rns_redc_tc.cuh"
-#include "rns_tower.cuh"
+#include "rns_tile.cuh"
 
 namespace {
 
@@ -39,49 +38,6 @@ using namespace rns;
 constexpr int TILE = RNS_TC_ROWS;
 constexpr int THREADS = TILE * LANES;
 
-// The thread's lane and constants; the plane tables in shared memory.
-struct Block {
-  Lane c;
-  int lane, l;
-};
-
-__device__ __forceinline__ Block enter(TcSmem<TILE>& s) {
-  load_tc_tables(s);
-  __syncthreads();
-  Block b;
-  b.lane = threadIdx.x % LANES;
-  b.l = b.lane % SUB;
-  b.c = load_lane(b.l);
-  return b;
-}
-
-// The thread's packed row in a tile; rows past the end (the last tile's)
-// compute on zeros and store nothing.
-struct Row {
-  long long row;
-  bool live;
-};
-
-__device__ __forceinline__ Row row_of(int tile, int rows) {
-  const long long row = static_cast<long long>(tile) * TILE + threadIdx.x / LANES;
-  return {row, row < rows};
-}
-
-__device__ __forceinline__ void load12m(int (&f)[12], const int* base, long long stride,
-                                        const Row& r, int lane) {
-  if (r.live) {
-    load12(f, base, stride, r.row, lane);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 12; ++k) f[k] = 0;
-  }
-}
-
-__device__ __forceinline__ F2 load2m(const int* base, long long stride, const Row& r,
-                                     int lane) {
-  return r.live ? load2(base, stride, r.row, lane) : F2{0, 0};
-}
-
 // a, b: rows of (12, 128) int32, sa and sb ints apart; out: (rows, 12, 128).
 __global__ void __launch_bounds__(THREADS, 2)
     fq12_mul_kernel(const int* __restrict__ a, long long sa, const int* __restrict__ b,
@@ -89,7 +45,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   __shared__ TcSmem<TILE> s;
   const Block t = enter(s);
   for (int tile = blockIdx.x; tile * TILE < rows; tile += gridDim.x) {
-    const Row r = row_of(tile, rows);
+    const Row r = row_of<TILE>(tile, rows);
     int f[12], g[12];
     load12m(f, a, sa, r, t.lane);
     load12m(g, b, sb, r, t.lane);
@@ -104,7 +60,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   __shared__ TcSmem<TILE> s;
   const Block t = enter(s);
   for (int tile = blockIdx.x; tile * TILE < rows; tile += gridDim.x) {
-    const Row r = row_of(tile, rows);
+    const Row r = row_of<TILE>(tile, rows);
     int f[12];
     load12m(f, a, sa, r, t.lane);
     fq12_square<SUB>(f, t.c, s, bias_at(RNS_SQ_BIAS, t.l));
@@ -118,7 +74,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   __shared__ TcSmem<TILE> s;
   const Block t = enter(s);
   for (int tile = blockIdx.x; tile * TILE < rows; tile += gridDim.x) {
-    const Row r = row_of(tile, rows);
+    const Row r = row_of<TILE>(tile, rows);
     int f[12];
     load12m(f, a, sa, r, t.lane);
     cyc_square<SUB>(f, t.c, s, bias_at(RNS_CYC_BIAS, t.l));
@@ -140,7 +96,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   __shared__ TcSmem<TILE> s;
   const Block t = enter(s);
   for (int tile = blockIdx.x; tile * TILE < rows; tile += gridDim.x) {
-    const Row r = row_of(tile, rows);
+    const Row r = row_of<TILE>(tile, rows);
     int f[12];
     load12m(f, a, sa, r, t.lane);
     const F2 e0 = load2m(d0, s0, r, t.lane);

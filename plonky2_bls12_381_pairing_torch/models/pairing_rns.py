@@ -1,13 +1,19 @@
 """Batched BLS12-381 optimal-ate pairing on the RNS arithmetic tier (the JAX
 package's models/pairing_rns.py).
 
-  pairing(P, Q)                   the fused prepare+Miller loop, then the
+  pairing(P, Q)                   the fused prepare+Miller loop (one
+                                  kernel, kernels.miller_fused), then the
                                   final exponentiation;
-  multi_pairing / pairing_check   the split form: prepare_g2_stepmajor, the
-                                  Miller loop over T terms' line coefficients
-                                  (one term: the whole-loop kernel
-                                  kernels.miller_run), one final exponentiation
-                                  of the product.
+  multi_pairing / pairing_check   the split form: prepare_g2_stepmajor (one
+                                  kernel per term, kernels.prepare_g2_lines),
+                                  the Miller loop over the T terms' line
+                                  coefficients (one kernel, kernels.miller_run),
+                                  one final exponentiation of the product.
+
+Each loop's plain PyTorch form (prepare_g2_stepmajor_plain,
+miller_loop_fused_plain; kernels.miller_run_plain for the split loop) gives
+the same rows; only setup (a Q at infinity replaced by the generator,
+G2Projective.from_affine) and the final conjugation stay outside the kernels.
 
 The final exponentiation's five exponentiations by |BLS_X| run in the form
 the `impl` keyword names (cyclotomic_exp; by default the whole-exponent
@@ -27,10 +33,9 @@ import torch
 
 from .. import constants as C
 from ..ops.rns import fp, kernels, tower
-from ..ops.rns.lines import (G1Affine, G2Affine, G2Projective, addition_step,
-                             doubling_step, scale_terms)
-from .schedule import (_DO_SQUARE, _FUSED_RUNS, _FUSED_TAIL, _GS_SEGMENTS,
-                       _KARA_SEGMENTS, _MILLER_RUNS, _RUNS, NUM_COEFFS)
+from ..ops.rns.lines import G1Affine, G2Affine, G2Projective, scale_terms
+from .schedule import (_DO_SQUARE, _FUSED_FLAGS, _GS_SEGMENTS, _IS_ADD, _KARA_SEGMENTS,
+                       _MILLER_RUNS, NUM_COEFFS)
 
 
 # ---------------------------------------------------------------------------
@@ -38,22 +43,27 @@ from .schedule import (_DO_SQUARE, _FUSED_RUNS, _FUSED_TAIL, _GS_SEGMENTS,
 # ---------------------------------------------------------------------------
 
 
+def _g2_start(q: G2Affine) -> tuple[G2Affine, G2Projective]:
+    """The line steps' inputs: Q with its infinity inputs replaced by the
+    generator (masked out inside the Miller loop), and R = Q projective."""
+    qs = G2Affine.generator_like(q).conditional_select(q.infinity, q)
+    return qs, G2Projective.from_affine(qs)
+
+
 def prepare_g2_stepmajor(q: G2Affine) -> torch.Tensor:
     """Line-coefficient tensor in step-major layout (68, ..., 3, 2, LANES),
-    the layout the Miller loop reads step by step. Infinity inputs are
-    replaced by the generator and masked out inside the Miller loop."""
-    q = G2Affine.generator_like(q).conditional_select(q.infinity, q)
-    r = G2Projective.from_affine(q)
-    triples = []
-    for n_dbl, has_add in _RUNS:
-        for _ in range(n_dbl):
-            r, cs = doubling_step(r)
-            triples.append(torch.stack(cs, dim=-3))
-        if has_add:
-            r, cs = addition_step(r, q)
-            triples.append(torch.stack(cs, dim=-3))
-    assert len(triples) == NUM_COEFFS
-    return torch.stack(triples)
+    the layout the Miller loop reads step by step: the 68 line steps in one
+    kernel on a card (kernels.prepare_g2_lines)."""
+    qs, r = _g2_start(q)
+    return kernels.prepare_g2_lines(r.x, r.y, r.z, qs.x, qs.y, _IS_ADD)
+
+
+def prepare_g2_stepmajor_plain(q: G2Affine) -> torch.Tensor:
+    """prepare_g2_stepmajor's rows in plain PyTorch on any device."""
+    qs, r = _g2_start(q)
+    out = kernels.prepare_g2_lines_plain(r.x, r.y, r.z, qs.x, qs.y, _IS_ADD)
+    assert out.shape[0] == NUM_COEFFS
+    return out
 
 
 def prepare_g2(q: G2Affine) -> torch.Tensor:
@@ -86,7 +96,11 @@ def miller_steps_raw(f: torch.Tensor, raw_list: list, pys: list, pxs: list,
     """The Miller accumulation over step-major RAW triples of T terms, scaling
     each step's coefficients inside the step (4 extra REDC rows per term
     instead of a scaled copy of the 68-step tensor). In a uniform step the
-    last term's ell and the square are one tower op."""
+    last term's ell and the square are one tower op.
+
+    No path calls it: it is the JAX package's form of the split loop, kept
+    (with _ell_scaled and schedule._MILLER_RUNS) only as the reference that
+    tests hold kernels.miller_run_plain and miller_loop to, on the CPU."""
     last = len(raw_list) - 1
 
     def step(f, j, square):
@@ -113,8 +127,8 @@ def miller_loop(ps, prepared_stepmajor, q_infinities=None) -> torch.Tensor:
     ps: G1Affine or list; prepared_stepmajor: matching (68, ..., 3, 2, LANES)
     tensors from prepare_g2_stepmajor; q_infinities: the G2 points' packed
     infinity masks (None: no G2 point at infinity). Returns f:
-    (..., 12, LANES). One term with one row axis runs as kernels.miller_run
-    (one kernel on a card)."""
+    (..., 12, LANES). The accumulation is kernels.miller_run (one kernel on a
+    card for any number of terms); its rows are those of miller_steps_raw."""
     if not isinstance(ps, (list, tuple)):
         ps = [ps]
         prepared_stepmajor = [prepared_stepmajor]
@@ -126,57 +140,38 @@ def miller_loop(ps, prepared_stepmajor, q_infinities=None) -> torch.Tensor:
         inf = p.infinity != 0
         skips.append((inf if qinf is None else inf | (qinf != 0)).to(torch.int32))
     rows = ps[0].infinity.shape[:-1]  # infinity is a packed lane mask
-    f = tower.one(rows, ps[0].y.device)
-    if len(ps) == 1 and len(rows) == 1:
-        f = kernels.miller_run(f, prepared_stepmajor[0], ps[0].y, ps[0].x,
-                               skips[0], _DO_SQUARE)
-    else:
-        pys = [fp.wrap(p.y[..., None, :]) for p in ps]
-        pxs = [fp.wrap(p.x[..., None, :]) for p in ps]
-        f = miller_steps_raw(f, prepared_stepmajor, pys, pxs, skips)
+    f = kernels.miller_run(tower.one(rows, ps[0].y.device), list(prepared_stepmajor),
+                           [p.y for p in ps], [p.x for p in ps], skips, _DO_SQUARE)
     if C.BLS_X_IS_NEGATIVE:
         f = tower.conjugate(f)
     return f
+
+
+def _fused_args(p: G1Affine, q: G2Affine) -> tuple:
+    """The fused loop's operands: f = one, R and Q from _g2_start, P, the
+    packed skip mask (an input at infinity) and the step flags."""
+    qs, r = _g2_start(q)
+    skip = ((p.infinity != 0) | (q.infinity != 0)).to(torch.int32)
+    f0 = tower.one(p.infinity.shape[:-1], p.y.device)
+    return f0, r.x, r.y, r.z, qs.x, qs.y, p.y, p.x, skip, _FUSED_FLAGS
 
 
 def miller_loop_fused(p: G1Affine, q: G2Affine) -> torch.Tensor:
     """Single-term Miller loop with the G2 preparation fused into the
     accumulation: (R, f) run through the 68-step schedule together, so each
-    line's coefficients are consumed the step they are produced. The ell
-    coefficient scaling rides the line steps' last stacked REDC (scale=...).
-    Infinity inputs are replaced by the generator for the line arithmetic and
-    leave f unchanged (identity-select)."""
-    qs = G2Affine.generator_like(q).conditional_select(q.infinity, q)
-    r = G2Projective.from_affine(qs)
-    py = fp.wrap(p.y[..., None, :])
-    px = fp.wrap(p.x[..., None, :])
-    skip = ((p.infinity != 0) | (q.infinity != 0))[..., None, :]
-    rows = p.infinity.shape[:-1]
-    f = tower.one(rows, p.y.device)
+    line's coefficients are consumed the step they are produced, in one
+    kernel on a card (kernels.miller_fused). The ell coefficient scaling
+    rides the line steps' last stacked REDC. Infinity inputs are replaced by
+    the generator for the line arithmetic and leave f unchanged
+    (identity-select)."""
+    f = kernels.miller_fused(*_fused_args(p, q))
+    return tower.conjugate(f) if C.BLS_X_IS_NEGATIVE else f
 
-    def ell_pre(f, sc0, sc1, c2):
-        """mul_by_014 with pre-scaled coefficients + the identity-select for
-        infinity terms."""
-        return torch.where(skip, f, tower.mul_by_014(f, c2, sc1, sc0))
 
-    def uniform(r, f):
-        r2, (sc0, sc1, c2) = doubling_step(r, scale=(py, px))
-        return r2, tower.square(ell_pre(f, sc0, sc1, c2))
-
-    for n in _FUSED_RUNS:
-        for _ in range(n):
-            r, f = uniform(r, f)
-        r, (sc0, sc1, c2) = doubling_step(r, scale=(py, px))
-        f = ell_pre(f, sc0, sc1, c2)
-        r, (sc0, sc1, c2) = addition_step(r, qs, scale=(py, px))
-        f = tower.square(ell_pre(f, sc0, sc1, c2))
-    for _ in range(_FUSED_TAIL):
-        r, f = uniform(r, f)
-    r, (sc0, sc1, c2) = doubling_step(r, scale=(py, px))
-    f = ell_pre(f, sc0, sc1, c2)
-    if C.BLS_X_IS_NEGATIVE:
-        f = tower.conjugate(f)
-    return f
+def miller_loop_fused_plain(p: G1Affine, q: G2Affine) -> torch.Tensor:
+    """miller_loop_fused's rows in plain PyTorch on any device."""
+    f = kernels.miller_fused_plain(*_fused_args(p, q))
+    return tower.conjugate(f) if C.BLS_X_IS_NEGATIVE else f
 
 
 # ---------------------------------------------------------------------------

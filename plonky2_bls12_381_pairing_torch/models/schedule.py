@@ -113,6 +113,23 @@ def _fused_groups():
 _FUSED_RUNS, _FUSED_TAIL = _fused_groups()
 
 
+def _fused_step_flags():
+    """The fused loop's grouped schedule as one flag per step, the form the
+    miller_fused kernel reads: bit 0 a square after the ell, bit 1 an
+    addition step (else a doubling step). Checked against the per-triple
+    tables."""
+    flags = []
+    for n in _FUSED_RUNS:
+        # the uniform run, the squareless pre-addition doubling, the addition
+        flags += [1] * n + [0, 3]
+    flags += [1] * _FUSED_TAIL + [0]  # the tail run and the final doubling
+    assert flags == [int(sq) | int(add) << 1 for sq, add in zip(_DO_SQUARE, _IS_ADD)]
+    return tuple(flags)
+
+
+_FUSED_FLAGS = _fused_step_flags()
+
+
 def _miller_runs():
     """Runs of uniform ell+square steps of the split Miller loop, broken at
     the 6 squareless triples (the 5 pre-addition doubling triples and the

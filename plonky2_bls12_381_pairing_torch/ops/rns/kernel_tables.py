@@ -25,6 +25,56 @@ from . import fp, lines, tower
 _SLOT = slice(0, RC.SUB)
 
 
+#: The stacked REDCs of the line steps in the order the plain formulas run
+#: them (ops/rns/lines.py), by table key: doubling_step's stages 1-3 and
+#: addition_step's stages A-E, a trailing "s" where the stage differs with
+#: scale=(py, px).
+LINE_STAGES = {(False, False): ("dbl1", "dbl2", "dbl3"),
+               (False, True): ("dbl1", "dbl2", "dbl3s"),
+               (True, False): ("add_a", "add_b", "add_c", "add_d", "add_e"),
+               (True, True): ("add_a", "add_b", "add_c", "add_ds", "add_es")}
+
+
+def line_biases() -> dict[str, list[int]]:
+    """Bias multiple k of each REDC input row of doubling_step and
+    addition_step in both scale modes, read off the plain formulas as they
+    run on a dummy point: every fp.redc_stack / fp.redc_cat they call is
+    recorded with its per-entry nonneg multiples (a multi-row entry of
+    redc_cat, such as a scaling term, gives its k to each of its rows)."""
+    z = torch.zeros((1, 2, RC.LANES), dtype=torch.int32)
+    r = lines.G2Projective(z, z, z)
+    q = lines.G2Affine(z, z, torch.zeros((1, RC.LANES), dtype=torch.int32))
+    w = fp.wrap(z[:, :1])
+    stack, cat = fp.redc_stack, fp.redc_cat
+    out: dict[str, list[int]] = {}
+    for (is_add, scaled), names in LINE_STAGES.items():
+        rec: list[list[int]] = []
+
+        def rec_stack(rs, dim=-2):
+            rec.append([fp.nonneg_multiple(x) for x in rs])
+            return stack(rs, dim)
+
+        def rec_cat(rs, dim=-2):
+            rec.append([fp.nonneg_multiple(x) for x in rs for _ in range(x.ch.shape[dim])])
+            return cat(rs, dim)
+
+        fp.redc_stack, fp.redc_cat = rec_stack, rec_cat
+        try:
+            scale = (w, w) if scaled else None
+            if is_add:
+                lines.addition_step(r, q, scale=scale)
+            else:
+                lines.doubling_step(r, scale=scale)
+        finally:
+            fp.redc_stack, fp.redc_cat = stack, cat
+        assert len(rec) == len(names)
+        for name, ks in zip(names, rec):
+            assert out.setdefault(name, ks) == ks, name
+    # scaled mode's stage D is the plain stage D and the coefficients c0, c1
+    assert out["add_ds"][:8] == out["add_d"]
+    return out
+
+
 def static_biases() -> dict[str, list[int]]:
     """Bias multiple k of each REDC input of one Granger-Scott squaring
     ("cyc"), Fq12 product ("mul"), complex squaring ("sq") and sparse product
@@ -32,7 +82,10 @@ def static_biases() -> dict[str, list[int]]:
     coefficient scaling ("ell": c0*P.y, c1*P.x); of one Karabina squaring
     ("kara", 8); and of the stacked REDCs of the Karabina decompression: the
     numerator candidates ("knum", 4), the scaled conjugate of the denominator
-    ("kdinv", 2), g1 ("kg1", 2) and g0 ("kg0", 2)."""
+    ("kdinv", 2), g1 ("kg1", 2) and g0 ("kg0", 2); and of the line steps'
+    stacked REDCs (line_biases: "dbl1" 8, "dbl2" 10, "dbl3" 2 or "dbl3s" 6;
+    "add_a" 6, "add_b" 4, "add_c" 6, "add_d" 8 or "add_ds" 12, "add_e" 6 or
+    "add_es" 6)."""
     z = torch.zeros((1, 12, RC.LANES), dtype=torch.int32)
     d = z[:, :2]
     w = fp.wrap(z[:, :1])
@@ -56,6 +109,7 @@ def static_biases() -> dict[str, list[int]]:
         # each scaling term is a 2-row R with one bound for both rows
         "ell": [fp.nonneg_multiple(r) for r in lines.scale_terms(d, d, w, w)
                 for _ in range(2)],
+        **line_biases(),
     }
 
 
@@ -93,7 +147,10 @@ BIAS_TABLES = {"cyc": "RNS_CYC_BIAS", "mul": "RNS_MUL_BIAS", "sq": "RNS_SQ_BIAS"
                "m014": "RNS_M014_BIAS", "ell": "RNS_ELL_BIAS",
                "kara": "RNS_KARA_BIAS", "knum": "RNS_KNUM_BIAS",
                "kdinv": "RNS_KDINV_BIAS", "kg1": "RNS_KG1_BIAS",
-               "kg0": "RNS_KG0_BIAS"}
+               "kg0": "RNS_KG0_BIAS",
+               **{key: f"RNS_{key.upper()}_BIAS"
+                  for key in ("dbl1", "dbl2", "dbl3", "dbl3s", "add_a", "add_b",
+                              "add_c", "add_d", "add_ds", "add_e", "add_es")}}
 
 
 def tables() -> dict[str, np.ndarray]:

@@ -11,7 +11,16 @@ ops/rns/pallas.py on the pairing's paths) and their plain PyTorch versions.
   kara_full(a, segments)          <- pallas.kara_full_run    (csrc/kara_full.cu)
   pow_static_fused(a, exponent)   <- pallas.pow_static_fused (csrc/pow_static.cu)
   miller_run(f0, coeffs, py, px, skip, flags)
-                                  <- pallas.miller_run       (csrc/miller.cu)
+                                  <- pallas.miller_run, for T >= 1 terms
+                                                             (csrc/miller.cu)
+  miller_fused(f0, rx, ry, rz, qx, qy, py, px, skip, flags)
+                                  <- models/pairing_rns.py miller_loop_fused,
+                                     XLA fusions in the JAX package
+                                                             (csrc/miller.cu)
+  prepare_g2_lines(rx, ry, rz, qx, qy, is_add)
+                                  <- models/pairing_rns.py prepare_g2_stepmajor,
+                                     XLA fusions in the JAX package
+                                                             (csrc/miller.cu)
   fq12_mul, fq12_square, fq12_mul_by_014, fq12_mul_by_014_square,
   fq12_cyclotomic_square          <- pallas.fused_op over the tower formulas
                                      (csrc/tower_ops.cu)
@@ -42,6 +51,7 @@ from ..cuda_build import rows as _rows
 from . import fp, lines, tower
 
 LANES = fp.LANES
+_FQ2 = (2, LANES)
 
 _PTR, _INT, _STRIDE = cuda_build.PTR, cuda_build.INT, cuda_build.STRIDE
 #: kernel name -> (source, C entry point, its argument types). A tensor
@@ -66,8 +76,11 @@ _KERNELS = {
     "pow_static": ("pow_static.cu", "pow_static_launch",
                    [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
     "miller_run": ("miller.cu", "miller_run_launch",
-                   [_PTR, _STRIDE, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
-                    _PTR, _INT, _PTR]),
+                   [_PTR, _STRIDE, _PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR]),
+    "miller_fused": ("miller.cu", "miller_fused_launch",
+                     [_PTR, _STRIDE] * 6 + [_PTR] * 4 + [_INT, _PTR, _INT, _PTR]),
+    "prepare_g2_lines": ("miller.cu", "prepare_g2_lines_launch",
+                         [_PTR, _STRIDE] * 5 + [_PTR, _INT, _PTR, _INT, _PTR]),
     "fq12_mul": ("tower_ops.cu", "fq12_mul_launch",
                  [_PTR, _STRIDE] * 2 + [_PTR, _INT, _PTR]),
     "fq12_square": ("tower_ops.cu", "fq12_square_launch",
@@ -192,25 +205,67 @@ def kara_full_plain(a: torch.Tensor, segments) -> torch.Tensor:
 # mul_by_014_square_plain and cyclotomic_square_plain.
 
 
-def miller_run_plain(f0: torch.Tensor, coeffs_stepmajor: torch.Tensor,
-                     py: torch.Tensor, px: torch.Tensor, skip: torch.Tensor,
+def _as_terms(x) -> list:
+    """One term's tensor, or a list of the terms' tensors, as a list."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def miller_run_plain(f0: torch.Tensor, coeffs_stepmajor, py, px, skip,
                      do_square_flags) -> torch.Tensor:
-    """The single-term Miller accumulation over step-major raw line triples:
-    per step the coefficient scaling (c0*P.y, c1*P.x, one 4-row REDC), the
-    sparse product with the identity-select on skip, and the square where the
-    step's flag is set."""
-    pyw = fp.wrap(py[..., None, :])
-    pxw = fp.wrap(px[..., None, :])
+    """The Miller accumulation over step-major raw line triples of T terms
+    (each argument but f0 one term's tensor or a list of T): per step and
+    term the coefficient scaling (c0*P.y, c1*P.x, one 4-row REDC), the sparse
+    product with the identity-select on the term's skip mask, then the square
+    where the step's flag is set."""
+    terms = list(zip(*(_as_terms(x) for x in (coeffs_stepmajor, py, px, skip))))
+    scales = [(fp.wrap(y[..., None, :]), fp.wrap(x[..., None, :])) for _, y, x, _ in terms]
     f = f0
-    for triple, sq in zip(coeffs_stepmajor, do_square_flags):
-        sc = fp.redc_cat(lines.scale_terms(triple[..., 0, :, :], triple[..., 1, :, :],
-                                           pyw, pxw))
-        g = tower.mul_by_014_plain(f, triple[..., 2, :, :], sc[..., 2:4, :],
-                                   sc[..., 0:2, :])
-        f = tower.select(skip, f, g)
+    for j, sq in enumerate(do_square_flags):
+        for (coeffs, _, _, sk), (pyw, pxw) in zip(terms, scales):
+            triple = coeffs[j]
+            sc = fp.redc_cat(lines.scale_terms(triple[..., 0, :, :], triple[..., 1, :, :],
+                                               pyw, pxw))
+            g = tower.mul_by_014_plain(f, triple[..., 2, :, :], sc[..., 2:4, :],
+                                       sc[..., 0:2, :])
+            f = tower.select(sk, f, g)
         if sq:
             f = tower.square_plain(f)
     return f
+
+
+def miller_fused_plain(f0: torch.Tensor, rx, ry, rz, qx, qy, py, px, skip,
+                       step_flags) -> torch.Tensor:
+    """The single-term Miller loop with the G2 preparation fused in, from the
+    accumulator f0 and the point R = (rx, ry, rz) (Q = (qx, qy)): per step
+    the line step, doubling or (flag bit 1) addition, with the ell scaling by
+    P.y and P.x riding its last REDC, the sparse product with the
+    identity-select on skip, and (flag bit 0) the square."""
+    r = lines.G2Projective(rx, ry, rz)
+    q = lines.G2Affine(qx, qy, None)
+    scale = (fp.wrap(py[..., None, :]), fp.wrap(px[..., None, :]))
+    f = f0
+    for flag in step_flags:
+        if flag & 2:
+            r, (sc0, sc1, c2) = lines.addition_step(r, q, scale=scale)
+        else:
+            r, (sc0, sc1, c2) = lines.doubling_step(r, scale=scale)
+        f = tower.select(skip, f, tower.mul_by_014_plain(f, c2, sc1, sc0))
+        if flag & 1:
+            f = tower.square_plain(f)
+    return f
+
+
+def prepare_g2_lines_plain(rx, ry, rz, qx, qy, is_add) -> torch.Tensor:
+    """The raw line triples (steps, ..., 3, 2, LANES) of the schedule from
+    R = (rx, ry, rz), Q = (qx, qy): per step a doubling or (is_add) an
+    addition step."""
+    r = lines.G2Projective(rx, ry, rz)
+    q = lines.G2Affine(qx, qy, None)
+    triples = []
+    for add in is_add:
+        r, cs = lines.addition_step(r, q) if add else lines.doubling_step(r)
+        triples.append(torch.stack(cs, dim=-3))
+    return torch.stack(triples)
 
 
 # ---------------------------------------------------------------------------
@@ -366,32 +421,112 @@ def pow_static_fused(a: torch.Tensor, exponent: int) -> torch.Tensor:
     return _launch("pow_static", a, rows, arg, len(bits))
 
 
-def miller_run(f0: torch.Tensor, coeffs_stepmajor: torch.Tensor, py: torch.Tensor,
-               px: torch.Tensor, skip: torch.Tensor, do_square_flags) -> torch.Tensor:
-    """The full single-term Miller accumulation (one ell per line triple, a
-    square after the steps whose flag is set) from the accumulator f0.
-    f0: (rows, 12, LANES), any row stride; coeffs_stepmajor: (steps, rows, 3,
-    2, LANES); py, px, skip: (rows, LANES); all int32. The conjugation for a
-    negative loop parameter is the caller's."""
+def _row_operand(t: torch.Tensor, batch: tuple) -> torch.Tensor:
+    """A (batch..., LANES) operand the Miller kernels read as contiguous
+    (rows, LANES)."""
+    _check(t, (LANES,))
+    if tuple(t.shape[:-1]) != batch:
+        raise ValueError(f"expected shape {(*batch, LANES)}, got {tuple(t.shape)}")
+    return t
+
+
+def miller_run(f0: torch.Tensor, coeffs_stepmajor, py, px, skip,
+               do_square_flags) -> torch.Tensor:
+    """The Miller accumulation of T >= 1 terms (one ell per term and line
+    triple, a square after the steps whose flag is set) from the accumulator
+    f0. coeffs_stepmajor, py, px, skip: one term's tensor each, or lists of
+    T; coeffs (steps, batch..., 3, 2, LANES); py, px, skip (batch...,
+    LANES); f0 (batch..., 12, LANES), any row stride; all int32. The
+    conjugation for a negative loop parameter is the caller's."""
     flags = tuple(int(bool(v)) for v in do_square_flags)
-    if len(flags) != coeffs_stepmajor.shape[0]:
+    terms = [_as_terms(x) for x in (coeffs_stepmajor, py, px, skip)]
+    if len({len(x) for x in terms}) != 1 or not terms[0]:
+        raise ValueError("one or more terms, each a coefficient tensor, P.y, P.x and "
+                         "skip mask")
+    if any(c.shape[0] != len(flags) for c in terms[0]):
         raise ValueError("one square flag per step")
     if f0.device.type == "cpu":
-        return miller_run_plain(f0, coeffs_stepmajor, py, px, skip, flags)
-    rows = py.shape[0]
-    _check(coeffs_stepmajor, (rows, 3, 2, LANES))
-    for t in (py, px, skip):
-        _check(t, (rows, LANES))
-    f0v, stride = _rows(f0, (rows,), (12, LANES))
-    out = torch.empty((rows, 12, LANES), dtype=torch.int32, device=f0.device)
-    _call("miller_run", f0.device, f0v.data_ptr(), stride, coeffs_stepmajor.data_ptr(),
-          py.data_ptr(), px.data_ptr(), skip.data_ptr(),
+        return miller_run_plain(f0, *terms, flags)
+    return _miller_run_kernel(f0, terms, flags)
+
+
+def _miller_run_kernel(f0: torch.Tensor, terms: list, flags: tuple) -> torch.Tensor:
+    """miller_run's launch: the terms' (coeffs, py, px, skip) pointers go to
+    the kernel as a (T, 4) int64 table on the device."""
+    batch = tuple(terms[1][0].shape[:-1])
+    ptrs = []
+    for c, y, x, sk in zip(*terms):
+        _check(c, (len(flags), *batch, 3, 2, LANES))
+        ptrs.append([c.data_ptr()] + [_row_operand(t, batch).data_ptr() for t in (y, x, sk)])
+    # pinned, so that the copy does not wait for the stream
+    table = torch.tensor(ptrs, dtype=torch.int64,
+                         pin_memory=f0.device.type == "cuda").to(f0.device, non_blocking=True)
+    f0v, stride = _rows(f0, batch, (12, LANES))
+    out = torch.empty((*batch, 12, LANES), dtype=torch.int32, device=f0.device)
+    _call("miller_run", f0.device, f0v.data_ptr(), stride, table.data_ptr(), len(ptrs),
           _int_arg(("flags", flags), flags, f0.device).data_ptr(), len(flags),
-          out.data_ptr(), rows)
+          out.data_ptr(), math.prod(batch))
     return out
 
 
-_FQ2 = (2, LANES)
+def _point_args(batch: tuple, *coords: torch.Tensor) -> tuple[list, list]:
+    """Fq2 coordinates (batch..., 2, LANES) as (pointer, row stride) pairs,
+    and the views to keep alive until the launch is enqueued."""
+    views, args = [], []
+    for t in coords:
+        if tuple(t.shape[:-2]) != batch:
+            raise ValueError(f"expected shape {(*batch, *_FQ2)}, got {tuple(t.shape)}")
+        v, stride = _rows(t, batch, _FQ2)
+        views.append(v)
+        args += [v.data_ptr(), stride]
+    return views, args
+
+
+def miller_fused(f0: torch.Tensor, rx, ry, rz, qx, qy, py, px, skip,
+                 step_flags) -> torch.Tensor:
+    """The single-term Miller loop with the G2 preparation fused in
+    (miller_fused_plain) in one kernel: R = (rx, ry, rz) and Q = (qx, qy)
+    (batch..., 2, LANES), py, px, skip (batch..., LANES), f0 (batch..., 12,
+    LANES), all int32; step_flags one int per step, bit 0 the square, bit 1
+    an addition step. The conjugation for a negative loop parameter is the
+    caller's."""
+    flags = tuple(int(v) for v in step_flags)
+    if f0.device.type == "cpu":
+        return miller_fused_plain(f0, rx, ry, rz, qx, qy, py, px, skip, flags)
+    return _miller_fused_kernel(f0, rx, ry, rz, qx, qy, py, px, skip, flags)
+
+
+def _miller_fused_kernel(f0, rx, ry, rz, qx, qy, py, px, skip, flags) -> torch.Tensor:
+    batch = tuple(py.shape[:-1])
+    rows_ = [_row_operand(t, batch) for t in (py, px, skip)]
+    views, pts = _point_args(batch, rx, ry, rz, qx, qy)  # noqa: F841 (kept alive)
+    f0v, stride = _rows(f0, batch, (12, LANES))
+    out = torch.empty((*batch, 12, LANES), dtype=torch.int32, device=f0.device)
+    _call("miller_fused", f0.device, f0v.data_ptr(), stride, *pts,
+          *(t.data_ptr() for t in rows_),
+          _int_arg(("steps", flags), flags, f0.device).data_ptr(), len(flags),
+          out.data_ptr(), math.prod(batch))
+    return out
+
+
+def prepare_g2_lines(rx, ry, rz, qx, qy, is_add) -> torch.Tensor:
+    """The raw line triples (steps, batch..., 3, 2, LANES) of the schedule
+    from R = (rx, ry, rz) and Q = (qx, qy), (batch..., 2, LANES) int32
+    (prepare_g2_lines_plain) in one kernel; is_add one flag per step."""
+    flags = tuple(int(bool(v)) for v in is_add)
+    if rx.device.type == "cpu":
+        return prepare_g2_lines_plain(rx, ry, rz, qx, qy, flags)
+    return _prepare_g2_lines_kernel(rx, ry, rz, qx, qy, flags)
+
+
+def _prepare_g2_lines_kernel(rx, ry, rz, qx, qy, flags) -> torch.Tensor:
+    batch = tuple(rx.shape[:-2])
+    views, pts = _point_args(batch, rx, ry, rz, qx, qy)  # noqa: F841 (kept alive)
+    out = torch.empty((len(flags), *batch, 3, 2, LANES), dtype=torch.int32, device=rx.device)
+    _call("prepare_g2_lines", rx.device, *pts,
+          _int_arg(("is_add", flags), flags, rx.device).data_ptr(), len(flags),
+          out.data_ptr(), math.prod(batch))
+    return out
 
 
 def fq12_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,8 @@ import torch
 
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
-from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _GS_SEGMENTS,
+from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _FUSED_FLAGS,
+                                                             _GS_SEGMENTS, _IS_ADD,
                                                              _KARA_SEGMENTS)
 from plonky2_bls12_381_pairing_torch.ops.rns import (fp, kernel_tables, kernels, lines,
                                                      tower)
@@ -72,6 +73,18 @@ def miller_inputs(n: int, seed: int, device):
     return f0, mpr.prepare_g2_stepmajor(q), p.y, p.x, skip
 
 
+def fused_inputs(n: int, seed: int, device):
+    """The same point pairs as miller_inputs, as miller_fused takes them:
+    f0, R, Q, py, px, skip and the step flags."""
+    r = random.Random(seed)
+    ps = [rm.rand_g1(r) for _ in range(n)]
+    qs = [rm.rand_g2(r) for _ in range(n)]
+    ps[1] = rm.G1Affine(0, 0, True)
+    qs[2 % n] = rm.G2Affine(rm.Fq2(0, 0), rm.Fq2(0, 0), True)
+    return mpr._fused_args(G1Affine.encode(ps, device=device),
+                           G2Affine.encode(qs, device=device))
+
+
 def test_cpu_wrappers_run_plain_versions():
     a = torch.from_numpy(cyclotomic_rows(2, 0xE1))
     segs = ((2, True), (1, True), (3, False))
@@ -104,6 +117,9 @@ def test_cpu_wrappers_run_plain_versions():
     args = miller_inputs(2, 0xEC, "cpu")
     assert torch.equal(kernels.miller_run(*args, _DO_SQUARE),
                        kernels.miller_run_plain(*args, _DO_SQUARE))
+    fused = fused_inputs(2, 0xEC, "cpu")
+    assert torch.equal(kernels.miller_fused(*fused), kernels.miller_fused_plain(*fused))
+    assert torch.equal(kernels.prepare_g2_lines(*fused[1:6], _IS_ADD), args[1])
     # the forms of the exponentiation: runs of squarings, the one-loop form,
     # the Karabina chain and the whole Karabina exponentiation
     assert torch.equal(kernels.cyc_exp_cond(a, segs), got)
@@ -119,11 +135,14 @@ def test_cpu_wrappers_run_plain_versions():
     assert torch.equal(kernels.kara_full(a, small), kernels.kara_full_plain(a, small))
     assert set(kernels.launches) == {
         "cyc_exp", "cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp",
-        "kara_full", "pow_static", "miller_run", "fq12_mul", "fq12_square",
-        "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square"}
+        "kara_full", "pow_static", "miller_run", "miller_fused", "prepare_g2_lines",
+        "fq12_mul", "fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square",
+        "fq12_cyclotomic_square"}
     assert all(n == 0 for n in kernels.launches.values())
     with pytest.raises(ValueError):
         kernels.kara_full(a, (1, 2, 3))
+    with pytest.raises(ValueError):
+        kernels.miller_run(args[0], [], [], [], [], _DO_SQUARE)
     with pytest.raises(ValueError):
         kernels.kara_exp(c, ())
     with pytest.raises(ValueError):
@@ -182,7 +201,10 @@ def test_wrappers_refuse_other_devices():
                  lambda: tower.mul(f, f),
                  lambda: kernels.miller_run(
                      f, torch.empty((68, 1, 3, 2, RC.LANES), dtype=torch.int32,
-                                    device="meta"), row, row, row, _DO_SQUARE)):
+                                    device="meta"), row, row, row, _DO_SQUARE),
+                 lambda: kernels.miller_fused(f, d, d, d, d, d, row, row, row,
+                                              _FUSED_FLAGS),
+                 lambda: kernels.prepare_g2_lines(d, d, d, d, d, _IS_ADD)):
         with pytest.raises(ValueError):
             call()
 
@@ -251,7 +273,9 @@ def test_kernel_header_matches_tables():
         assert not arr[:, len(blk):].any() and not arr[:, :, RC.NCH:].any(), name
     biases = kernel_tables.static_biases()
     rows = {"cyc": 12, "mul": 12, "sq": 12, "m014": 12, "ell": 4, "kara": 8,
-            "knum": 4, "kdinv": 2, "kg1": 2, "kg0": 2}
+            "knum": 4, "kdinv": 2, "kg1": 2, "kg0": 2,
+            "dbl1": 8, "dbl2": 10, "dbl3": 2, "dbl3s": 6, "add_a": 6, "add_b": 4,
+            "add_c": 6, "add_d": 8, "add_ds": 12, "add_e": 6, "add_es": 6}
     assert sorted(kernel_tables.BIAS_TABLES) == sorted(rows)
     for key, name in kernel_tables.BIAS_TABLES.items():
         assert len(biases[key]) == rows[key]
@@ -523,6 +547,63 @@ def test_miller_run_kernel_matches_plain(cuda):
     assert torch.equal(got, kernels.miller_run_plain(*args, _DO_SQUARE))
 
 
+def line_operands(n: int, seed: int, device) -> tuple:
+    """The Miller kernels' operands on n packed rows, from random field
+    elements (the formulas need no curve point): R and Q as slices of one
+    wider stack (row stride 12 * LANES), P.y, P.x and the skip mask. Row
+    n // 2's first element has R = (0, 0, 0), as a G2 input at infinity would
+    give it, and is masked; with more than one row the last row's second
+    element is masked too (a G1 input at infinity)."""
+    d = device_rows(n, seed, device)
+    rx, ry, rz, qx, qy = (d[:, 2 * i:2 * i + 2] for i in range(5))
+    for t in (rx, ry, rz):
+        t[n // 2, :, :RC.SUB] = 0
+    skip = torch.zeros((n, RC.LANES), dtype=torch.int32, device=device)
+    skip[n // 2, :RC.SUB] = 1
+    if n > 1:
+        skip[n - 1, RC.SUB:] = 1
+    return rx, ry, rz, qx, qy, d[:, 10].contiguous(), d[:, 11].contiguous(), skip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", TC_ROWS)
+def test_miller_kernels_match_plain(cuda, rows):
+    """prepare_g2_lines, miller_fused and miller_run (one and two terms) at
+    ragged tile counts, with inputs at infinity, from the paths' f0 = one
+    (row stride 0) and from random rows."""
+    ops = [line_operands(rows, seed + rows, cuda) for seed in (0x1F0, 0x1F1)]
+    starts = (tower.one((rows,), cuda), device_rows(rows, 0x1F2, cuda))
+    kernels.reset_launches()
+    coeffs = []
+    for o in ops:
+        got = kernels.prepare_g2_lines(*o[:5], _IS_ADD)
+        assert got.shape == (68, rows, 3, 2, RC.LANES)
+        assert torch.equal(got, kernels.prepare_g2_lines_plain(*o[:5], _IS_ADD))
+        coeffs.append(got)
+    for f0 in starts:
+        got = kernels.miller_fused(f0, *ops[0], _FUSED_FLAGS)
+        assert torch.equal(got, kernels.miller_fused_plain(f0, *ops[0], _FUSED_FLAGS))
+        for t in (1, 2):
+            call = (coeffs[:t], *([o[k] for o in ops[:t]] for k in (5, 6, 7)), _DO_SQUARE)
+            got = kernels.miller_run(f0, *call)
+            assert torch.equal(got, kernels.miller_run_plain(f0, *call))
+    assert {k: v for k, v in kernels.launches.items() if v} == {
+        "prepare_g2_lines": 2, "miller_fused": 2, "miller_run": 4}
+
+
+@pytest.mark.gpu
+def test_miller_run_kernel_takes_any_number_of_terms(cuda):
+    """Seventeen terms, each its own points, in one launch."""
+    ops = [line_operands(3, 0x200 + t, cuda) for t in range(17)]
+    coeffs = [kernels.prepare_g2_lines(*o[:5], _IS_ADD) for o in ops]
+    call = (coeffs, *([o[k] for o in ops] for k in (5, 6, 7)), _DO_SQUARE)
+    f0 = tower.one((3,), cuda)
+    kernels.reset_launches()
+    got = kernels.miller_run(f0, *call)
+    assert {k: v for k, v in kernels.launches.items() if v} == {"miller_run": 1}
+    assert torch.equal(got, kernels.miller_run_plain(f0, *call))
+
+
 @pytest.mark.gpu
 def test_kernel_wrappers_check_their_inputs(cuda):
     a = torch.zeros((4, 12, RC.LANES), dtype=torch.int32, device=cuda)
@@ -552,3 +633,14 @@ def test_kernel_wrappers_check_their_inputs(cuda):
             call()
     with pytest.raises(TypeError):
         kernels.kara_exp(c.to(torch.int64), _KARA_SEGMENTS)
+    # the Miller kernels: no term, a term's tensor missing, a step flag
+    # missing, P rows of another batch
+    f0, coeffs, py, px, skip = miller_inputs(4, 0xFD, cuda)
+    for call in (lambda: kernels.miller_run(f0, [], [], [], [], _DO_SQUARE),
+                 lambda: kernels.miller_run(f0, [coeffs] * 2, [py], [px], [skip], _DO_SQUARE),
+                 lambda: kernels.miller_run(f0, coeffs, py, px, skip, _DO_SQUARE[:-1]),
+                 lambda: kernels.miller_run(f0, coeffs, py[:1], px, skip, _DO_SQUARE),
+                 lambda: kernels.miller_fused(f0, *line_operands(2, 0xFE, cuda)[:5], py[:1],
+                                              px[:1], skip[:1], _FUSED_FLAGS)):
+        with pytest.raises(ValueError):
+            call()

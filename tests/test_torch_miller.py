@@ -1,9 +1,11 @@
 """The PyTorch port's split G2 preparation and Miller loop against the JAX
 package's (models/pairing_rns.py) on one packed row (two point pairs, one
 input at infinity), every comparison bit for bit (tolerance 0):
-  * prepare_g2_stepmajor / prepare_g2 rows;
+  * prepare_g2_stepmajor / prepare_g2 rows, and prepare_g2_stepmajor_plain's
+    (the prepare_g2_lines kernel's plain version);
   * miller_loop with one term against JAX's and the port's miller_loop_fused;
-  * miller_loop with two terms against JAX's;
+  * miller_loop with two terms (miller_run_plain with T = 2 on the CPU)
+    against JAX's;
   * miller_run_plain (the miller_run kernel's plain version) against the
     Pallas miller_run kernel in interpret mode;
   * the plain tower formulas behind the per-op kernels against the Pallas
@@ -71,6 +73,16 @@ def test_prepare_g2_stepmajor_rows_match_jax(terms, term):
     got = tmpr.prepare_g2_stepmajor(port_g2(jq))
     assert got.shape == (68, 1, 3, 2, RC.LANES) and got.is_contiguous()
     assert np.array_equal(interop.to_numpy(got), a(want))
+
+
+@pytest.mark.parametrize("term", [0, 1])
+def test_prepare_g2_stepmajor_plain_rows_match_jax(terms, term):
+    """The plain version of the prepare_g2_lines kernel."""
+    _, jq, want = terms[term]
+    kernels.reset_launches()
+    got = tmpr.prepare_g2_stepmajor_plain(port_g2(jq))
+    assert np.array_equal(interop.to_numpy(got), a(want))
+    assert all(n == 0 for n in kernels.launches.values())
 
 
 def test_prepare_g2_rows_match_jax(terms):

@@ -1,6 +1,8 @@
 """The PyTorch port's pairing path against the JAX package's
 (models/pairing_rns.py) and the frozen vectors, on one packed row:
-  * miller_loop_fused rows bit-identical to JAX's, an infinity input included;
+  * miller_loop_fused rows bit-identical to JAX's, an infinity input included,
+    and those of miller_loop_fused_plain (the miller_fused kernel's plain
+    version);
   * the plain Granger-Scott exponentiation (the cyc_exp kernel's reference)
     bit-identical to the Pallas cyc_exp_run kernel in interpret mode;
   * pairing equal in value to JAX's pairing (whose CPU path runs the Karabina
@@ -56,14 +58,30 @@ def test_schedule_matches_jax():
     assert tuple(map(tuple, jmpr._EXP_STEPS.tolist())) == tmpr._EXP_STEPS
 
 
-def test_miller_loop_fused_rows_match_jax():
+@pytest.fixture(scope="module")
+def fused_case():
+    """One packed row (a G1 input at infinity) as the port's points, and the
+    JAX package's miller_loop_fused rows for it."""
     r = random.Random(0x70A1)
     ps = [rm.rand_g1(r), rm.G1Affine(0, 0, True)]
     qs = [rm.rand_g2(r), rm.rand_g2(r)]
     jp, jq = G1Affine.encode(ps), G2Affine.encode(qs)
-    got = tmpr.miller_loop_fused(*port_points(jp, jq))
-    want = jax.jit(jmpr.miller_loop_fused)(jp, jq)
-    assert np.array_equal(interop.to_numpy(got), np.asarray(want))
+    return port_points(jp, jq), np.asarray(jax.jit(jmpr.miller_loop_fused)(jp, jq))
+
+
+def test_miller_loop_fused_rows_match_jax(fused_case):
+    pts, want = fused_case
+    got = tmpr.miller_loop_fused(*pts)
+    assert np.array_equal(interop.to_numpy(got), want)
+
+
+def test_miller_loop_fused_plain_rows_match_jax(fused_case):
+    """The plain version of the miller_fused kernel."""
+    pts, want = fused_case
+    kernels.reset_launches()
+    got = tmpr.miller_loop_fused_plain(*pts)
+    assert np.array_equal(interop.to_numpy(got), want)
+    assert all(n == 0 for n in kernels.launches.values())
 
 
 def test_cyc_exp_plain_matches_pallas_interpret():
