@@ -6,12 +6,16 @@ on one CUDA card and hold them to their references.
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from csrc/ and report nvcc's resource use; for
      the kernels on the tensor-core REDC (cyc_exp.cu, tower_ops.cu,
-     miller.cu) each kernel's registers, shared memory and spills (none
-     allowed) and the IMMA instructions in their SASS;
+     miller.cu) and the warp kernels (pow_static.cu, limb_tower.cu) each
+     kernel's registers, shared memory and spills (none allowed), and the
+     IMMA instructions in the tensor-core sources' SASS;
   2. run each kernel on the card at the shapes the paths give it and hold it
      bit for bit to its plain PyTorch version (the tensor-core kernels also
      at ragged tile counts and with an operand of row stride 0; the Miller
-     kernels on the run's own points, miller_run with one and two terms);
+     kernels on the run's own points, miller_run with one and two terms;
+     the warp kernels also at 1, 3, 5 and 127 rows, the limb tower kernel
+     on row views too; pow_static's time per dependent step against its
+     latency model);
      time both,
      count the kernel's bound from the inputs (the REDC base extensions at
      the tensor cores' u8 rate, and at the int32 rate beside it), and time
@@ -268,17 +272,21 @@ def pow_ops(elements: int, exponent: int) -> Work:
 
 
 # Latency model of one dependent pow step, redc(mul(acc, .)), on its
-# critical path, in cycles. Assumed Hopper latencies: a dependent int32
-# multiply-add 4, a shared-memory load 30, a barrier of 4 warps 24, a Barrett
-# reduction (convert, float product, convert back, multiply-add, select) 24.
-# The path: the product and step 1 (two Barretts), four barriers, two 31-term
-# dot products each behind one shared load, step 3 (a shared load, two
-# Barretts, three multiply-adds), and the last Barrett behind a shared load
-# and a multiply-add.
-IMAD_CYC, SMEM_CYC, SYNC_CYC, BARRETT_CYC = 4, 30, 24, 24
-POW_STEP_CYC = (2 * BARRETT_CYC + 4 * SYNC_CYC + 2 * (SMEM_CYC + 31 * IMAD_CYC)
-                + (SMEM_CYC + 2 * BARRETT_CYC + 3 * IMAD_CYC)
-                + (SMEM_CYC + IMAD_CYC + BARRETT_CYC))
+# critical path in the warp design (csrc/pow_static.cu), in cycles. Assumed
+# Hopper latencies: a dependent int32 multiply-add 4, and 2 cycles of issue
+# per warp-wide multiply-add (16 INT32 lanes per SM sub-partition), a
+# shared-memory store and load behind a __syncwarp 40, a shuffle 24, a
+# Barrett reduction (convert, float product, convert back, multiply-add,
+# select) 24. The path: the product and step 1's sigma (a multiply-add and a
+# Barrett each), the sigma exchange, step 2's two 31-term dot products (62
+# multiply-adds, issue-bound), the alpha shuffle, step 3 (qhat, then sigma':
+# three multiply-adds and two Barretts), the sigma' exchange, step 4's
+# 31-term dot product, the beta shuffle and its rounding (two operations),
+# and the last Barrett behind a multiply-add.
+IMAD_CYC, IMAD_ISSUE_CYC, XCHG_CYC, SHFL_CYC, BARRETT_CYC = 4, 2, 40, 24, 24
+POW_STEP_CYC = (2 * (IMAD_CYC + BARRETT_CYC) + XCHG_CYC + 62 * IMAD_ISSUE_CYC + SHFL_CYC
+                + (3 * IMAD_CYC + 2 * BARRETT_CYC) + XCHG_CYC + 31 * IMAD_ISSUE_CYC
+                + (SHFL_CYC + 2 * IMAD_CYC) + (IMAD_CYC + BARRETT_CYC))
 
 
 def bound_ms(nbytes: int, ops) -> tuple[float, str, float | None]:
@@ -427,6 +435,11 @@ def mark(label: str) -> None:
 
 #: the sources whose kernels run the tensor-core REDC (csrc/rns_redc_tc.cuh)
 TC_SOURCES = ("cyc_exp.cu", "tower_ops.cu", "miller.cu")
+#: the warp kernels: their tables and scratch live in registers, no spills
+WARP_SOURCES = ("pow_static.cu", "limb_tower.cu")
+#: row counts of the warp kernels' checks besides the paths' shapes: odd
+#: counts that end the grid on a partial block
+ODD_ROWS = (1, 3, 5, 127)
 
 
 def ptxas_use(log: str) -> dict[str, str]:
@@ -587,13 +600,15 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
-        for src in TC_SOURCES:
+        for src in TC_SOURCES + WARP_SOURCES:
             report = ptxas_use(kernels.build_log[src])
             assert report, f"no ptxas report for {src}"
             for entry, use in report.items():
                 print(f"[ptxas] {src} {entry}: {use}")
                 assert " 0 bytes spill stores" in use and " 0 bytes spill loads" in use, (
                     f"{src} {entry} spills")
+            if src in WARP_SOURCES:
+                continue
             imma = sass_count(out_dir / f"lib{Path(src).stem}.so", "IMMA")
             print(f"[sass] {src}: {imma} IMMA (tensor-core integer products)")
             assert imma > 0, f"{src} runs no tensor-core product"
@@ -683,20 +698,31 @@ def main() -> int:
         dec = fp.decode(got)
         assert [dec[i] for i in (3, 200, 201)] == [0, 0, 0], "0 must map to 0"
         assert all(v == 0 or dec[i] * v % rm.P == 1 for i, v in enumerate(vals))
-        pow_ms = time_kernel(lambda i: kernels.pow_static_fused(pow_in, e), 20)
+        # at odd row counts (a partial last block), and for a short exponent
+        for n in ODD_ROWS:
+            pow_err = max(pow_err, check("pow_static", kernels.pow_static_fused(pow_in[:n], e),
+                                         fp.pow_static(pow_in[:n], e), f"rows {n} e=p-2"))
+        pow_err = max(pow_err, check("pow_static", kernels.pow_static_fused(pow_in, 0xD201),
+                                     fp.pow_static(pow_in, 0xD201),
+                                     f"{tuple(pow_in.shape)} e=0xD201"))
+        # 20 launches between two events, enqueued while the stream waits:
+        # one launch's event pair alone also times the host's enqueue
+        pow_ms = time_kernel(lambda i: kernels.pow_static_fused(pow_in, e), 5, batch=20)
         kern["pow_static"] = {
             "source": "pow_static.cu", "replaces": 1035, "max_abs_err": pow_err,
             "ms": pow_ms, "plain_ms": time_host(lambda: fp.pow_static(pow_in, e), 2),
             "bound": bound_ms(2 * pow_in.numel() * 4, pow_ops(256, e))}
-        # what the chain of dependent steps costs: one row alone (one block,
+        # what the chain of dependent steps costs: one row alone (two warps,
         # no contention) against the latency model
-        pow_one_ms = time_kernel(lambda i: kernels.pow_static_fused(pow_in[:1], e), 20)
+        pow_one = pow_in[:1]
+        pow_one_ms = time_kernel(lambda i: kernels.pow_static_fused(pow_one, e), 5, batch=20)
         steps = pow_steps(e)
-        print(f"[pow_static] {steps} dependent REDCs: {pow_ms:.3f} ms at "
-              f"{tuple(pow_in.shape)}, {pow_one_ms:.3f} ms for one row alone "
-              f"({pow_one_ms / steps * 1e3:.3f} us per step); latency model "
-              f"{steps * POW_STEP_CYC / CLOCK_HZ * 1e3:.3f} ms "
-              f"({POW_STEP_CYC} cycles per step at {CLOCK_HZ / 1e9} GHz)")
+        print(f"[pow_static] {steps} dependent REDCs: {pow_ms:.4f} ms at "
+              f"{tuple(pow_in.shape)}, {pow_one_ms:.4f} ms for one row alone "
+              f"({pow_one_ms / steps * 1e3:.4f} us per step, "
+              f"{pow_one_ms / steps * 1e-3 * CLOCK_HZ:.0f} cycles at {CLOCK_HZ / 1e9} GHz); "
+              f"latency model {steps * POW_STEP_CYC / CLOCK_HZ * 1e3:.4f} ms "
+              f"({POW_STEP_CYC} cycles, {POW_STEP_CYC / CLOCK_HZ * 1e6:.4f} us per step)")
 
         # the five tower ops at (rows, 12, LANES). Each is timed over four
         # copies of its operands in turn (more than the L2 cache holds
@@ -826,9 +852,18 @@ def main() -> int:
         lcyc = lfq12.mul(lfq12.frobenius_pow(easy, 2), easy)
         lx, ly = la[:, 3], lb[:, 7]  # (2048, 48), row stride 12 * 48
         def limb_case(name, source, replaces, wrapper, plain, args, out_numel, ops,
-                      plain_reps=3, copies=None):
+                      plain_reps=3, copies=None, odd_rows=False):
             got = wrapper(*args)
             err = check(name, got, plain(*args), tuple(args[0].shape))
+            for n in ODD_ROWS if odd_rows else ():
+                # n rows, and n rows read in place through a row stride that
+                # is not the dense one (slices of a wider stack)
+                part = tuple(x[:n] for x in args)
+                wide = torch.cat([*part, part[0][:, :5]], dim=-2)
+                cuts = [0, *np.cumsum([x.shape[-2] for x in part])]
+                views = tuple(wide[:, i:j] for i, j in zip(cuts, cuts[1:]))
+                for case, note in ((part, f"rows {n}:"), (views, f"rows {n}, row views:")):
+                    err = max(err, check(name, wrapper(*case), plain(*case), note))
             copies = copies or [tuple(x.clone() if torch.is_tensor(x) else x for x in args)
                                 for _ in range(4)]
             kern[name] = {
@@ -886,7 +921,7 @@ def main() -> int:
             got = limb_case(f"limb_fq12_{name}", "limb_tower.cu", f"{TPU_LIMB_TOWER}:{line}",
                             getattr(ltower, f"fq12_{name}"),
                             getattr(ltower, f"fq12_{name}_plain"), args, BATCH * 12 * 48,
-                            limb_tower_ops(BATCH, name), plain_reps=2)
+                            limb_tower_ops(BATCH, name), plain_reps=2, odd_rows=True)
             # equal in value to the composition path (other rows)
             composed = {"mul": lfq12.mul, "square": lfq12.square,
                         "cyclotomic_square": lfq12.cyclotomic_square}.get(name)

@@ -1,0 +1,366 @@
+"""Where the time of the two warp kernels goes, on one CUDA card.
+
+    python3 kernel_probe.py
+
+The sources in csrc/ carry no instrumentation. The probe writes its own
+copies into build/kernel_probe/ (gitignored) and builds them there, one nvcc
+each, all started together: a copy is a csrc/ source with checked edits
+(each edit's anchor must occur as often as the probe expects, or it stops),
+or, for the block design that pow_static.cu had before its warp design,
+embedded below. Every kernel it times is held to its plain version.
+
+  1. pow_static before and after the warp design, timed the same way (20
+     queued launches between two events): the block design (one 128-thread
+     block per packed row, rns_common.cuh's block-wide redc) and
+     csrc/pow_static.cu, at the path's shape (128 packed rows) and for one
+     row, for p - 2 (608 dependent steps).
+  2. a pow_static step split by clock64() stamps on the first element's
+     thread 0 into its phases (the product, REDC steps 1-4, the last
+     Barrett), summed over the chain and divided by its steps, in both
+     designs. A phase ends where its barrier (or __syncwarp / shuffle) lets
+     thread 0 go on, so waits count in the phase they end.
+  3. pow_static at 1, 2, 4 and 8 warps per block.
+  4. the limb tower kernel's four entries at (2048, 12, 48) through their
+     wrappers, and the time of its stages: copies of csrc/limb_tower.cu that
+     stop after stage k (1 the operand slots, 2 the operand sums, 3 the
+     products' columns).
+Prints the card's name and power limit first and last.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from plonky2_bls12_381_pairing_torch import constants as LC
+from plonky2_bls12_381_pairing_torch.ops import cuda_build
+from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
+from plonky2_bls12_381_pairing_torch.ops.rns import fp
+from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
+
+ROOT = Path(__file__).resolve().parent
+CSRC = ROOT / "plonky2_bls12_381_pairing_torch" / "csrc"
+OUT = ROOT / "build" / "kernel_probe"
+PHASES = ("product", "step 1: sigma", "step 2: extension to B, alpha",
+          "step 3: qhat, sigma'", "step 4: extension to A, beta", "last Barrett")
+
+# The block design: block_pow_kernel as csrc/pow_static.cu had it (one
+# block of 128 threads per packed row, one redc<1> of rns_common.cuh per
+# step), and block_stamped_kernel, the same REDC written out with a stamp
+# after each phase.
+BLOCK_POW = r"""
+#include "rns_common.cuh"
+using namespace rns;
+
+__global__ void __launch_bounds__(LANES)
+    block_pow_kernel(const int* __restrict__ a, int* __restrict__ out,
+                     const int* __restrict__ bits, int nbits) {
+  __shared__ Smem<1> s;
+  load_tables(s);
+  __syncthreads();
+  const int lane = threadIdx.x;
+  const Lane c = load_lane(lane % SUB);
+  const size_t row = blockIdx.x;
+  const int base = a[row * LANES + lane];
+  int acc[1] = {base};
+  for (int i = 0; i < nbits; ++i) {
+    acc[0] = mul_m(acc[0], acc[0], c);
+    redc<1>(acc, c, s);
+    if (bits[i]) {
+      acc[0] = mul_m(acc[0], base, c);
+      redc<1>(acc, c, s);
+    }
+  }
+  out[row * LANES + lane] = acc[0];
+}
+
+extern "C" int block_pow_launch(const int* a, int* out, int rows, const int* bits,
+                                int nbits, void* stream) {
+  block_pow_kernel<<<rows, LANES, 0, static_cast<cudaStream_t>(stream)>>>(a, out, bits,
+                                                                          nbits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+__device__ long long block_cycles[8];
+#define STAMP(k) if (on) { long long n = clock64(); block_cycles[k] += n - t0; t0 = n; }
+
+__device__ __forceinline__ void redc1(int& x, const Lane& c, Smem<1>& s, bool on,
+                                      long long& t0) {
+  const int lane = threadIdx.x, slot = lane / SUB, l = lane % SUB, base = slot * SUB;
+  const bool alpha_lane = l == RNS_ALPHA_LANE;
+  s.buf[lane] = mul_m(x, c.c_sigma, c);
+  __syncthreads();
+  STAMP(1)
+  int q = 0;
+  if (!c.is_a) {
+    const int* sig = &s.buf[base + RNS_A_LO];
+#pragma unroll 8
+    for (int i = 0; i < NCH; ++i) q += sig[i] * s.t1[i * SUB + l];
+  }
+  if (alpha_lane) s.fix[slot] = q >> RNS_ALPHA_T;
+  __syncthreads();
+  STAMP(2)
+  q = barrett(q - s.fix[slot] * c.c_mamod, c);
+  s.buf[lane] = barrett(x * c.c_mainv_mbinv + q * c.c_pmainv_mbinv, c);
+  __syncthreads();
+  STAMP(3)
+  int s2 = 0;
+  if (c.is_a || alpha_lane) {
+    const int* sig = &s.buf[base + RNS_B_LO];
+#pragma unroll 8
+    for (int j = 0; j < NCH; ++j) s2 += sig[j] * s.t2[j * SUB + l];
+  }
+  if (alpha_lane) s.fix[slot] = (s2 + (1 << (RNS_BETA_T - 1))) >> RNS_BETA_T;
+  __syncthreads();
+  STAMP(4)
+  x = barrett(c.is_a ? s2 - s.fix[slot] * c.c_mbmod : x * c.c_mainv + q * c.c_pmainv, c);
+  STAMP(5)
+}
+
+__global__ void __launch_bounds__(LANES)
+    block_stamped_kernel(const int* a, int* out, const int* bits, int nbits) {
+  __shared__ Smem<1> s;
+  load_tables(s);
+  __syncthreads();
+  const int lane = threadIdx.x;
+  const Lane c = load_lane(lane % SUB);
+  const size_t row = blockIdx.x;
+  const bool on = row == 0 && lane == 0;
+  const int base = a[row * LANES + lane];
+  int acc = base;
+  long long t0 = clock64();
+  for (int i = 0; i < nbits; ++i) {
+    acc = mul_m(acc, acc, c);
+    STAMP(0)
+    redc1(acc, c, s, on, t0);
+    if (bits[i]) {
+      acc = mul_m(acc, base, c);
+      STAMP(0)
+      redc1(acc, c, s, on, t0);
+    }
+  }
+  out[row * LANES + lane] = acc;
+}
+
+extern "C" int block_stamped_launch(const int* a, int* out, int rows, const int* bits,
+                                    int nbits, void* stream) {
+  block_stamped_kernel<<<rows, LANES, 0, static_cast<cudaStream_t>(stream)>>>(a, out, bits,
+                                                                              nbits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int block_stamped_cycles(long long* host) {
+  cudaMemcpyFromSymbol(host, block_cycles, sizeof(block_cycles));
+  const long long zero[8] = {};
+  cudaMemcpyToSymbol(block_cycles, zero, sizeof(zero));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+# pow_static.cu with the same stamps: (anchor, replacement, occurrences)
+STAMP_DEFS = r"""
+__device__ long long pow_stamp_cycles[8];
+#define STAMP(k) if (stamp_on) { const long long now = clock64(); \
+  pow_stamp_cycles[k] += now - stamp_t; stamp_t = now; }
+extern "C" int pow_stamped_cycles(long long* host) {
+  cudaMemcpyFromSymbol(host, pow_stamp_cycles, sizeof(pow_stamp_cycles));
+  const long long zero[8] = {};
+  cudaMemcpyToSymbol(pow_stamp_cycles, zero, sizeof(zero));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _after(anchor: str, insert: str, count: int = 1) -> tuple[str, str, int]:
+    return anchor, anchor + insert, count
+
+
+POW_STAMP_EDITS = [
+    _after('#include "rns_common.cuh"\n', STAMP_DEFS),
+    ("void run(int& x0, int& x1) const {",
+     "void run(int& x0, int& x1, long long& stamp_t, bool stamp_on) const {", 1),
+    _after("x1 = mul_m(x1, x1, r.c1);\n", "STAMP(0)\n"),
+    _after("x1 = mul_m(x1, b1, r.c1);\n", "STAMP(0)\n"),
+    ("__syncwarp();\n    // step 2", "__syncwarp();\n    STAMP(1)\n    // step 2", 1),
+    _after(">> RNS_ALPHA_T;\n", "STAMP(2)\n"),
+    ("__syncwarp();\n    // step 4", "__syncwarp();\n    STAMP(3)\n    // step 4", 1),
+    _after(">> RNS_BETA_T;\n", "STAMP(4)\n"),
+    _after("x1 = barrett(x1 * c1.c_mainv + q1 * c1.c_pmainv, c1);\n", "STAMP(5)\n"),
+    ("r.run(x0, x1);", "r.run(x0, x1, stamp_t, stamp_on);", 2),
+    ("  int bit = nbits > 0",
+     "  const bool stamp_on = e == 0 && t == 0;\n  long long stamp_t = clock64();\n"
+     "  int bit = nbits > 0", 1),
+]
+
+
+def tower_stop_edits(k: int) -> list[tuple[str, str, int]]:
+    """limb_tower.cu stopping after stage k: each thread of the block's
+    12 x 32 then writes one word of stage k's shared result and returns."""
+    stop = "if ({k} == {stage}) {{ out[(row * 12 + w) * NLIMBS + lane] = {v}; return; }}\n"
+    stages = ((1, "2. operand sums", "s.slots[w][lane]"),
+              (2, "3. products", "s.ops[w * OP_STRIDE + lane]"),
+              (3, "4. warp w", "s.prods[w][lane]"))
+    return [(f"  __syncthreads();\n\n  // {label}",
+             f"  __syncthreads();\n  {stop.format(k=k, stage=stage, v=v)}\n  // {label}", 1)
+            for stage, label, v in stages]
+
+
+def edited(src: Path, edits: list[tuple[str, str, int]]) -> str:
+    text = src.read_text()
+    for anchor, replacement, count in edits:
+        found = text.count(anchor)
+        if found != count:
+            raise RuntimeError(f"{src.name}: {anchor!r} occurs {found} times, "
+                               f"the probe expects {count}")
+        text = text.replace(anchor, replacement)
+    return text
+
+
+def nvcc(sources: dict[str, str]) -> dict:
+    """Build each source text (name -> text) into build/kernel_probe/, one
+    nvcc each, all started together; the loaded libraries by name."""
+    procs = {}
+    for name, text in sources.items():
+        src = OUT / f"{name}.cu"
+        src.write_text(text)
+        procs[name] = subprocess.Popen(
+            cuda_build.nvcc_command(src, OUT / f"lib{name}.so", OUT),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = {name: proc.communicate()[0] for name, proc in procs.items()}
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
+        for line in logs[name].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas] {name}: {line.strip()}")
+    return {name: ctypes.CDLL(str(OUT / f"lib{name}.so")) for name in sources}
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """The median over five samples of `reps` queued calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(f"[card] {card}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    for name, text in cuda_build.headers().items():
+        (OUT / name).write_text(text)
+    pow_src, tower_src = CSRC / "pow_static.cu", CSRC / "limb_tower.cu"
+    warps = (1, 2, 4, 8)
+    libs = nvcc({"block_pow": BLOCK_POW,
+                 "pow_stamped": edited(pow_src, POW_STAMP_EDITS),
+                 **{f"pow_warps{w}": edited(pow_src, [("constexpr int WARPS = 1;",
+                                                       f"constexpr int WARPS = {w};", 1)])
+                    for w in warps},
+                 **{f"tower_stop{k}": edited(tower_src, tower_stop_edits(k))
+                    for k in (1, 2, 3)}})
+
+    e = rm.P - 2
+    steps = len(fp.exponent_bits(e)) + sum(fp.exponent_bits(e))
+    rng = np.random.default_rng(7)
+    vals = [int.from_bytes(rng.bytes(48), "little") % rm.P for _ in range(256)]
+    a = torch.from_numpy(fp.encode(vals)).to(dev)
+    bits = torch.tensor(fp.exponent_bits(e), dtype=torch.int32, device=dev)
+    want = fp.pow_static(a, e)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = lambda: P(torch.cuda.current_stream().cuda_stream)
+
+    def pow_run(lib, launch: str, out: torch.Tensor, rows: int) -> None:
+        err = getattr(lib, launch)(P(a.data_ptr()), P(out.data_ptr()), I(rows),
+                                   P(bits.data_ptr()), I(bits.numel()), stream())
+        assert err == 0, (launch, err)
+
+    def pow_times(name: str, lib, launch: str) -> None:
+        out = torch.empty_like(a)
+        pow_run(lib, launch, out, a.shape[0])
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), f"{name} disagrees with fp.pow_static"
+        ms = time_ms(lambda: pow_run(lib, launch, out, a.shape[0]))
+        one = time_ms(lambda: pow_run(lib, launch, out, 1))
+        print(f"[pow] {name}: {ms:.4f} ms at {tuple(a.shape)}, {one:.4f} ms for one row "
+              f"({one / steps * 1e3:.3f} us per step)")
+
+    # 1. before and after, timed alike; 3. warps per block
+    pow_times("block design (before)", libs["block_pow"], "block_pow_launch")
+    for w in warps:
+        pow_times(f"warp design, {w} warp(s) per block", libs[f"pow_warps{w}"],
+                  "pow_static_launch")
+
+    # 2. the split of a step
+    cyc = (ctypes.c_longlong * 8)()
+    for name, lib, launch, read in (
+            ("block", libs["block_pow"], "block_stamped_launch", "block_stamped_cycles"),
+            ("warp", libs["pow_stamped"], "pow_static_launch", "pow_stamped_cycles")):
+        out = torch.empty_like(a[:1])
+        getattr(lib, read)(cyc)  # zero the counters
+        pow_run(lib, launch, out, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want[:1]), f"the stamped {name} kernel disagrees"
+        getattr(lib, read)(cyc)
+        per = [cyc[k] / steps for k in range(len(PHASES))]
+        print(f"[pow split] {name} design, cycles per dependent step (p - 2, {steps} "
+              f"steps, one row, stamps on): total {sum(per):.1f}")
+        for label, c in zip(PHASES, per):
+            print(f"[pow split]   {label:32s} {c:8.1f}")
+        ms = time_ms(lambda: pow_run(lib, launch, out, 1))
+        print(f"[pow split] {name} design with stamps, one row: {ms:.4f} ms "
+              f"({ms / steps * 1e3:.3f} us per step)")
+
+    # 4. the limb tower kernel, and the time of its first stages alone
+    rows = 2048
+    la = torch.from_numpy(rng.integers(0, 259, (rows, 12, 48), dtype=np.int32)).to(dev)
+    lb = torch.from_numpy(rng.integers(0, 259, (rows, 12, 48), dtype=np.int32)).to(dev)
+    la[..., -1] %= int(LC.P_LIMBS[-1])
+    lb[..., -1] %= int(LC.P_LIMBS[-1])
+    ld = lb[:, :6].contiguous()
+    for name in ltower.FORMULAS:
+        second, n = {"mul": (lb, 12), "mul_by_014": (ld, 6)}.get(name, (None, 0))
+        args = (la,) if second is None else (la, second)
+        plain = getattr(ltower, f"fq12_{name}_plain")(*args)
+        run = lambda: getattr(ltower, f"fq12_{name}")(*args)
+        assert torch.equal(run(), plain), name
+        sink = torch.empty_like(la)
+        ptrs = [P(la.data_ptr()), ctypes.c_longlong(12 * 48)]
+        if second is not None:
+            ptrs += [P(second.data_ptr()), ctypes.c_longlong(n * 48)]
+        stages = []
+        for k in (1, 2, 3):
+            entry = getattr(libs[f"tower_stop{k}"], f"limb_fq12_{name}_launch")
+            ms = time_ms(lambda: entry(*ptrs, P(sink.data_ptr()), I(rows), stream()))
+            stages.append(f"stages 1-{k} {ms:.4f} ms")
+        print(f"[tower] limb_fq12_{name} at ({rows}, 12, 48): {time_ms(run):.4f} ms; "
+              f"{', '.join(stages)}")
+    for line in cuda_build.build_log.get("limb_tower.cu", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[ptxas] limb_tower.cu: {line.strip()}")
+    print(f"[card] {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 // Device functions shared by the limb tier's kernels (mont.cu,
 // limb_tower.cu): the 48 x 48 limb convolution and the scan-free Montgomery
-// reduction (R = 2^408) on radix-2^8 int32 limbs.
+// reduction (R = 2^408) on radix-2^8 int32 limbs, block-wide (mont.cu) and
+// on one warp (limb_tower.cu).
 //
 // Work is laid out as the TPU kernels lay out their lanes: one thread per
 // column ("lane", 128 of them: 95 convolution columns, 100 working columns
@@ -99,6 +100,151 @@ __device__ __forceinline__ int mont_reduce_lanes(int col, int lane, Scratch& sc,
   }
   __syncthreads();  // the scratch is free again
   return res;
+}
+
+// ---------------------------------------------------------------------------
+// The warp-synchronous reduction (limb_tower.cu)
+// ---------------------------------------------------------------------------
+//
+// The same reduction, steps and pass counts as mont_reduce_lanes, on one
+// warp: thread j holds columns 4j .. 4j + 3 of the 128 in registers. A
+// shift-add pass is a local step plus one __shfl_up_sync of the thread
+// below's top column. The products by p' and p give each thread its own
+// four columns too (conv_strip), reading t and m from the warp's shared
+// scratch behind __syncwarp. The quotient test's sum is a warp reduction
+// (an exact integer sum, so its order is free). No barrier spans more than
+// the warp.
+
+constexpr int WARP = 32;
+constexpr int COLS_PER_THREAD = LANES / WARP;  // 4
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int PAD = 4;  // zeros before digit 0 of a padded constant row
+
+// Scratch of one warp's reduction: t (later s) and m, 128 columns each.
+struct WarpScratch {
+  int t[LANES];
+  int m[LANES];
+};
+
+// p and p' digits in shared memory, read by every warp of the block, with
+// zeros around them as far as conv_strip's windows reach (digits -3 .. 50
+// of p, -3 .. 51 of p').
+struct LimbConsts {
+  int p[PAD + NLIMBS + 4];
+  int pprime[PAD + NRED + 5];
+};
+
+__device__ __forceinline__ void load_consts(LimbConsts& k, int tid, int threads) {
+  constexpr int NP = PAD + NLIMBS + 4, NQ = PAD + NRED + 5;
+  for (int i = tid; i < NP + NQ; i += threads) {
+    if (i < NP) {
+      const int d = i - PAD;
+      k.p[i] = d >= 0 && d < NLIMBS ? LIMB_P[d] : 0;
+    } else {
+      const int d = i - NP - PAD;
+      k.pprime[i - NP] = d >= 0 && d < NRED ? LIMB_PPRIME[d] : 0;
+    }
+  }
+}
+
+// Four adjacent columns of a convolution: acc[q] += x[i] * y[c + q - i]
+// over lo <= i <= hi (y readable, zero where it has no digit, from
+// c - hi - 1 to c + 3 - lo). A window of four y digits slides down by one
+// per term: two shared loads for four multiply-adds.
+__device__ __forceinline__ void conv_strip(const int* x, const int* y, int c, int lo, int hi,
+                                           int (&acc)[4]) {
+  const int* w = y + c - lo;
+  int w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
+#pragma unroll 4
+  for (int i = lo; i <= hi; ++i) {
+    const int xi = x[i];
+    acc[0] += xi * w0;
+    acc[1] += xi * w1;
+    acc[2] += xi * w2;
+    acc[3] += xi * w3;
+    w3 = w2;
+    w2 = w1;
+    w1 = w0;
+    w0 = *(--w);
+  }
+}
+
+__device__ __forceinline__ void store4(int* dst, const int (&v)[4]) {
+  *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
+}
+
+// n shift-add passes over the warp's 128 columns (v: this thread's four);
+// the top column's carry is dropped, as in `passes`.
+__device__ __forceinline__ void warp_passes(int (&v)[4], int lane, int n) {
+  for (int i = 0; i < n; ++i) {
+    int below = __shfl_up_sync(FULL_MASK, v[3], 1);
+    if (lane == 0) below = 0;
+    v[3] = (v[3] & 255) + (v[2] >> 8);
+    v[2] = (v[2] & 255) + (v[1] >> 8);
+    v[1] = (v[1] & 255) + (v[0] >> 8);
+    v[0] = (v[0] & 255) + (below >> 8);
+  }
+}
+
+// mont_reduce_lanes on one warp: x holds this thread's four signed columns
+// (0 beyond the row's columns). Writes the 48 digits of the weakly reduced
+// result to out[0..47] (lanes < 16 store two each).
+__device__ __forceinline__ void mont_reduce_warp(int (&x)[4], int lane, WarpScratch& ws,
+                                                 const LimbConsts& k, int npass,
+                                                 int* __restrict__ out) {
+  const int c0 = COLS_PER_THREAD * lane;
+  // t = passes(col + bias)
+#pragma unroll
+  for (int q = 0; q < 4; ++q) x[q] += LIMB_BIAS[c0 + q];
+  warp_passes(x, lane, npass);
+  store4(&ws.t[c0], x);
+  __syncwarp();
+
+  // m = passes(t[:51] * p' mod R): column c < 51 sums t[i] p'[c - i] over
+  // i <= c (column 51 of thread 12's strip is dropped). Threads j < 13 take
+  // the low half of strip j's terms, threads 16 + j the high half, whose
+  // sums join over one shuffle each.
+  int m[4] = {0, 0, 0, 0};
+  {
+    const int j = lane % (WARP / 2), cm = COLS_PER_THREAD * j;
+    const int hi = min(cm + 3, NRED - 1), mid = hi / 2;
+    if (cm < NRED) {
+      if (lane < WARP / 2) {
+        conv_strip(ws.t, k.pprime + PAD, cm, 0, mid, m);
+      } else {
+        conv_strip(ws.t, k.pprime + PAD, cm, mid + 1, hi, m);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) m[q] += __shfl_xor_sync(FULL_MASK, m[q], WARP / 2);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) m[q] = c0 + q < NRED ? m[q] : 0;
+  warp_passes(m, lane, LIMB_NPASS_M);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) m[q] = c0 + q < NRED ? m[q] : 0;  // mod R
+  store4(&ws.m[c0], m);
+  __syncwarp();
+
+  // s = passes(t + m * p): column c < 98 of m * p sums m[j] p[c - j] over
+  // max(0, c - 47) <= j <= min(c, 50); columns 98 .. 127 are 0
+  conv_strip(ws.m, k.p + PAD, c0, max(0, c0 - (NLIMBS - 1)), min(c0 + 3, NRED - 1), x);
+  warp_passes(x, lane, LIMB_NPASS_S);
+
+  // q = [sum_k s[k] 2^(8k) mod 65521 == R mod 65521] over the 51 low
+  // columns: each partial and the sum < 51 * 258 * 65521 < 2^31
+  int qsum = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) qsum += c0 + q < NRED ? x[q] * LIMB_QW[c0 + q] : 0;
+#pragma unroll
+  for (int d = WARP / 2; d > 0; d /= 2) qsum += __shfl_xor_sync(FULL_MASK, qsum, d);
+
+  // result = s[51:99], + q at digit 0
+  store4(&ws.t[c0], x);  // t was last read before the m columns' __syncwarp
+  __syncwarp();
+  for (int l = lane; l < NLIMBS; l += WARP) {
+    out[l] = ws.t[l + NRED] + (l == 0 && qsum % LIMB_QMOD == LIMB_R_MOD_QMOD ? 1 : 0);
+  }
 }
 
 }  // namespace limb

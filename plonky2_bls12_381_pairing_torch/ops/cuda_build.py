@@ -54,6 +54,13 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_command(src: Path, lib: Path, include: Path) -> list[str]:
+    """The nvcc command that builds `src` into the shared library `lib`, with
+    the generated headers in `include` and csrc/ on the include path."""
+    return [_nvcc(), *_NVCC_FLAGS, "-I", str(include), "-I", str(_CSRC), "-o", str(lib),
+            str(src)]
+
+
 def headers() -> dict[str, str]:
     """The generated table headers, by file name."""
     from .kernels import limb_tables
@@ -90,9 +97,8 @@ def build() -> Path:
             build_log[src] = report.read_text() if report.exists() else ""
             continue
         tmp = out_dir / f"{lib.name}.{os.getpid()}"
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-I", str(out_dir), "-I", str(_CSRC),
-               "-o", str(tmp), str(_CSRC / src)]
-        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[src] = (subprocess.Popen(nvcc_command(_CSRC / src, tmp, out_dir),
+                                       stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, lib)
     failed = None

@@ -11,8 +11,8 @@ from here, read off the port's plain formulas:
   * the two fixed pass counts of the reduction and the first count of the
     fused product (ops/kernels/mont.py);
   * per tower formula (ops/kernels/tower.py `formula`): the operand terms,
-    the output combinations, the product count and the first pass count of
-    its merged reduction.
+    the output combinations (as lists of their nonzero terms),
+    the product count and the first pass count of its merged reduction.
 """
 
 from __future__ import annotations
@@ -39,11 +39,19 @@ def tables() -> dict[str, np.ndarray]:
     shape = (len(fs), tower.MAX_PRODUCTS, 2, tower.MAX_TERMS)
     slots = np.zeros(shape, dtype=np.int32)
     coefs = np.zeros(shape, dtype=np.int32)
-    outputs = np.zeros((len(fs), 12, tower.MAX_PRODUCTS), dtype=np.int32)
+    # each output's combination as the list of its nonzero terms (product
+    # index, coefficient, zero-padded) and its length
+    out_p = np.zeros((len(fs), 12, max_out_terms()), dtype=np.int32)
+    out_c = np.zeros_like(out_p)
+    out_n = np.zeros((len(fs), 12), dtype=np.int32)
     for i, f in enumerate(fs):
         slots[i, : f.products] = f.slots
         coefs[i, : f.products] = f.coefs
-        outputs[i, :, : f.products] = f.outputs
+        for j in range(12):
+            nz = np.flatnonzero(f.outputs[j])
+            out_p[i, j, : len(nz)] = nz
+            out_c[i, j, : len(nz)] = f.outputs[j, nz]
+            out_n[i, j] = len(nz)
     return {
         "LIMB_P": C.P_LIMBS.astype(np.int32),
         "LIMB_PPRIME": C.PPRIME_LIMBS.astype(np.int32),
@@ -55,8 +63,16 @@ def tables() -> dict[str, np.ndarray]:
         "LIMB_ONE_MONT": C.ONE_MONT.astype(np.int32),
         "LIMB_TOWER_SLOT": slots,
         "LIMB_TOWER_COEF": coefs,
-        "LIMB_TOWER_OUT": outputs,
+        "LIMB_TOWER_OUT_P": out_p,
+        "LIMB_TOWER_OUT_C": out_c,
+        "LIMB_TOWER_OUT_N": out_n,
     }
+
+
+def max_out_terms() -> int:
+    """The most nonzero terms of one output's combination, any formula."""
+    return max(int(np.count_nonzero(tower.formula(name).outputs, axis=1).max())
+               for name in tower.FORMULAS)
 
 
 def defines() -> dict[str, int]:

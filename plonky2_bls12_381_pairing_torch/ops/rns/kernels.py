@@ -414,11 +414,15 @@ def pow_static_fused(a: torch.Tensor, exponent: int) -> torch.Tensor:
         raise ValueError("exponent must be >= 1")
     if a.device.type == "cpu":
         return fp.pow_static(a, exponent)
+    return _pow_static_kernel(a, exponent)
+
+
+def _pow_static_kernel(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """pow_static_fused's launch, one warp per Fp element."""
     _check(a, (LANES,))
     bits = fp.exponent_bits(exponent)
     arg = _int_arg(("bits", exponent), bits or [0], a.device)
-    rows = a.numel() // LANES
-    return _launch("pow_static", a, rows, arg, len(bits))
+    return _launch("pow_static", a, a.numel() // LANES, arg, len(bits))
 
 
 def _row_operand(t: torch.Tensor, batch: tuple) -> torch.Tensor:

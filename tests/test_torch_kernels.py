@@ -467,12 +467,17 @@ def test_kara_full_kernel_matches_plain(cuda, segments):
 
 
 @pytest.mark.gpu
-def test_pow_kernel_matches_plain(cuda):
-    a = torch.from_numpy(fp_rows(40, 0xE6)).to(cuda)
+@pytest.mark.parametrize("rows", (1, 3, 5, 20, 127))
+def test_pow_kernel_matches_plain(cuda, rows):
+    """One warp per element: odd row counts end the grid on a partial block;
+    every value of fp_rows is a zero at index 1."""
+    a = torch.from_numpy(fp_rows(2 * rows, 0xE6 + rows)).to(cuda)
     kernels.reset_launches()
     got = kernels.pow_static_fused(a, rm.P - 2)
     assert kernels.launches["pow_static"] == 1
     assert torch.equal(got, fp.pow_static(a, rm.P - 2))
+    assert fp.decode(got)[1] == 0
+    assert torch.equal(kernels.pow_static_fused(a, 0xD201), fp.pow_static(a, 0xD201))
 
 
 @pytest.mark.gpu

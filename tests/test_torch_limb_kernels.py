@@ -292,9 +292,16 @@ def test_limb_header_matches_constants_and_bounds():
             0, f.col_hi + C.BIAS_FLOOR + 255)
         assert np.array_equal(arrs["LIMB_TOWER_SLOT"][i, :f.products], f.slots)
         assert np.array_equal(arrs["LIMB_TOWER_COEF"][i, :f.products], f.coefs)
-        assert np.array_equal(arrs["LIMB_TOWER_OUT"][i, :, :f.products], f.outputs)
+        # the outputs' combinations, as the lists of their nonzero terms
+        n = arrs["LIMB_TOWER_OUT_N"][i]
+        outputs = np.zeros((12, f.products), dtype=np.int64)
+        for j in range(12):
+            terms = arrs["LIMB_TOWER_OUT_P"][i, j, :n[j]]
+            outputs[j, terms] = arrs["LIMB_TOWER_OUT_C"][i, j, :n[j]]
+            assert n[j] == np.count_nonzero(f.outputs[j])
+            assert not arrs["LIMB_TOWER_OUT_C"][i, j, n[j]:].any()
+        assert np.array_equal(outputs, f.outputs)
         assert not arrs["LIMB_TOWER_COEF"][i, f.products:].any()
-        assert not arrs["LIMB_TOWER_OUT"][i, :, f.products:].any()
         # every operand stays within int32 per product, every output within
         # the bias row
         assert -C.BIAS_FLOOR < f.col_lo and f.col_hi + C.BIAS_FLOOR + 255 < (1 << 31)
@@ -400,12 +407,17 @@ def test_mont_mul_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", (1, 3, 5, 127))
 @pytest.mark.parametrize("name", tower.FORMULAS)
-def test_tower_kernel_matches_plain(cuda, name):
-    values = cyclotomic_values(5, 0xD7) if name == "cyclotomic_square" else fq12_values(5, 0xD7)
+def test_tower_kernel_matches_plain(cuda, name, rows):
+    """At odd row counts, fed back, with the second operand broadcast (row
+    stride 0), and with both operands read in place from slices of a wider
+    stack (a row stride that is not the dense one)."""
+    values = (cyclotomic_values(rows, 0xD7) if name == "cyclotomic_square"
+              else fq12_values(rows, 0xD7))
     a = t(fq12.encode(values), cuda)
-    b = t(fq12.encode(fq12_values(5, 0xD8)), cuda)
-    d = t(np.concatenate([_d_rows(0xD9), _d_rows(0xDA)])[:5], cuda)
+    b = t(fq12.encode(fq12_values(rows, 0xD8)), cuda)
+    d = t(np.concatenate([_d_rows(0xD9 + i) for i in range(-(-rows // 4))])[:rows], cuda)
     wrapper = getattr(tower, f"fq12_{name}")
     plain = getattr(tower, f"fq12_{name}_plain")
     args = {"mul": (a, b), "mul_by_014": (a, d)}.get(name, (a,))
@@ -415,6 +427,11 @@ def test_tower_kernel_matches_plain(cuda, name):
     assert torch.equal(wrapper(got, *args[1:]), plain(got, *args[1:]))  # fed back
     if len(args) == 2:  # the second operand broadcast over the batch
         one = args[1][:1]
-        assert torch.equal(wrapper(a, one), plain(a, one.expand(5, *one.shape[1:])))
-    assert tower.launches[f"limb_fq12_{name}"] == len(args) + 1
-    assert sum(tower.launches.values()) == len(args) + 1
+        assert torch.equal(wrapper(a, one), plain(a, one.expand(rows, *one.shape[1:])))
+    wide = torch.cat([got, *args], dim=-2)  # (rows, 12 + 12 + ..., 48)
+    views = (wide[:, 12:24], *(wide[:, 24:][:, :x.shape[-2]] for x in args[1:]))
+    assert views[0].stride(0) == wide.shape[1] * 48
+    assert torch.equal(wrapper(*views), plain(*views))
+    n = len(args) + 2
+    assert tower.launches[f"limb_fq12_{name}"] == n
+    assert sum(tower.launches.values()) == n

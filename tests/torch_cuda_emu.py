@@ -1,20 +1,27 @@
-"""The RNS tier's CUDA sources built for the host CPU, so that tests without
-a card run the kernels' own code.
+"""The port's CUDA sources built for the host CPU, so that tests without a
+card run the kernels' own code.
 
 `build` compiles csrc/<source> with the host's C++ compiler (g++, C++20)
-against a small stand-in for the CUDA runtime: a launch runs its blocks one
-after another, each as one std::thread per CUDA thread, with a
-std::barrier for __syncthreads and __shared__ as static storage. The build
-defines RNS_HOST_EMU, under which rns_redc_tc.cuh takes `extend` from this
-module (the tensor-core products as the same integer dot products of the
-same u8 planes, written out: their mma.sync fragment layout is the one
-part left to the card) and records every REDC a thread runs, its K input
-residues and its K outputs, for `redc_log`.
+against a small stand-in for the CUDA runtime and the generated headers of
+both tiers (rns_tables.h, limb_tables.h): a launch runs its blocks one after
+another, each as one std::thread per CUDA thread (1-, 2- or 3-D blocks),
+with a std::barrier for __syncthreads, one per warp of 32 threads for
+__syncwarp and the shuffles (__shfl_sync, __shfl_up_sync, __shfl_down_sync,
+__shfl_xor_sync, through a per-warp exchange buffer), __shared__ as static
+storage and `extern __shared__` as the launch's dynamic shared memory
+(cudaFuncSetAttribute is a no-op). The build defines RNS_HOST_EMU, under
+which rns_redc_tc.cuh takes `extend` from this module (the tensor-core
+products as the same integer dot products of the same u8 planes, written
+out: their mma.sync fragment layout is the one part left to the card) and
+records every REDC a thread runs, its K input residues and its K outputs,
+for `redc_log`. What the emulator cannot show is left to the card: timing,
+the compiler's limits, and races that its barriers hide.
 
 `bind(monkeypatch, kernels, lib)` points ops/rns/kernels.py's launch
 helpers at the built library (pytest's monkeypatch undoes it), so that a
 wrapper's kernel path (`kernels._miller_run_kernel`, ...) lays out and
-launches CPU tensors exactly as it does on a card.
+launches CPU tensors exactly as it does on a card; `bind_limb` does the
+same for the limb tier's wrappers (ops/cuda_build.py's `rows` and `call`).
 """
 
 from __future__ import annotations
@@ -32,28 +39,83 @@ CSRC = Path(__file__).resolve().parents[1] / "plonky2_bls12_381_pairing_torch" /
 
 _RUNTIME = r"""
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
-struct dim3_ { unsigned x = 0, y = 0, z = 0; };
-inline thread_local dim3_ threadIdx, blockIdx;
-inline dim3_ blockDim, gridDim;
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+template <class T> inline T min(T a, T b) { return b < a ? b : a; }
+template <class T> inline T max(T a, T b) { return a < b ? b : a; }
 inline std::barrier<>* g_barrier = nullptr;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+
+// warps: 32 consecutive threads of a block (x fastest, then y), each warp
+// with its own barrier and exchange buffer for the shuffles
+constexpr int kWarp = 32;
+struct EmuWarp {
+  std::barrier<> bar;
+  long long slot[kWarp];
+  explicit EmuWarp(int n) : bar(n) {}
+};
+inline thread_local EmuWarp* t_warp = nullptr;
+inline thread_local int t_lane = 0;
+inline void __syncwarp(unsigned = 0xffffffffu) { t_warp->bar.arrive_and_wait(); }
+template <class T> T emu_shfl(T v, int src, bool keep) {
+  long long bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  t_warp->slot[t_lane] = bits;
+  t_warp->bar.arrive_and_wait();
+  T out = v;
+  if (!keep) std::memcpy(&out, &t_warp->slot[src], sizeof(T));
+  t_warp->bar.arrive_and_wait();
+  return out;
+}
+template <class T> T __shfl_sync(unsigned, T v, int src, int width = kWarp) {
+  return emu_shfl(v, (t_lane / width) * width + src % width, false);
+}
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned d, int width = kWarp) {
+  const int s = t_lane % width - static_cast<int>(d);
+  return emu_shfl(v, t_lane - static_cast<int>(d), s < 0);
+}
+template <class T> T __shfl_down_sync(unsigned, T v, unsigned d, int width = kWarp) {
+  const int s = t_lane % width + static_cast<int>(d);
+  return emu_shfl(v, t_lane + static_cast<int>(d), s >= width);
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int m, int width = kWarp) {
+  return emu_shfl(v, t_lane ^ m, false);
+}
+
+// extern __shared__ arrays: one buffer of the launch's dynamic size, reused
+// by the blocks in turn
+inline std::vector<unsigned char> g_dyn_smem;
+
 #define __device__
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 #define __restrict__ __restrict
 #define __grid_constant__
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaDevAttrMultiProcessorCount = 16 };
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaDevAttrMultiProcessorCount = 16,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
+template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
 template <class K> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, int) {
   *n = 1;
   return 0;
@@ -62,8 +124,8 @@ inline float __int2float_rn(int x) { return static_cast<float>(x); }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline int __float2int_rn(float x) { return static_cast<int>(std::nearbyint(x)); }
 
-// per thread of the last launch (block * blockDim + thread): its REDCs as
-// K, K inputs, K outputs
+// per thread of the last launch (block * threads per block + thread): its
+// REDCs as K, K inputs, K outputs
 inline std::vector<std::vector<int>> g_logs;
 inline thread_local std::vector<int>* t_log = nullptr;
 template <int K> void emu_record(const int (&x)[K], bool first) {
@@ -75,19 +137,28 @@ extern "C" int emu_log_threads() { return static_cast<int>(g_logs.size()); }
 extern "C" int emu_log_len(int i) { return static_cast<int>(g_logs[i].size()); }
 extern "C" const int* emu_log_data(int i) { return g_logs[i].data(); }
 
-template <class Kernel, class... A> void emu_launch(int grid, int threads, Kernel kernel,
-                                                    A... args) {
-  blockDim.x = threads;
-  gridDim.x = grid;
-  g_logs.assign(static_cast<size_t>(grid) * threads, {});
-  for (int b = 0; b < grid; ++b) {
+template <class Kernel, class... A> void emu_launch(dim3 grid, dim3 block, size_t smem,
+                                                    Kernel kernel, A... args) {
+  blockDim = block;
+  gridDim = grid;
+  const int threads = static_cast<int>(block.x * block.y * block.z);
+  const int blocks = static_cast<int>(grid.x * grid.y * grid.z);
+  g_logs.assign(static_cast<size_t>(blocks) * threads, {});
+  g_dyn_smem.assign(smem, 0);
+  for (int b = 0; b < blocks; ++b) {
     std::barrier<> bar(threads);
     g_barrier = &bar;
+    std::vector<std::unique_ptr<EmuWarp>> warps;
+    for (int w = 0; w * kWarp < threads; ++w) {
+      warps.push_back(std::make_unique<EmuWarp>(std::min(kWarp, threads - w * kWarp)));
+    }
     std::vector<std::thread> ts;
     for (int t = 0; t < threads; ++t) {
-      ts.emplace_back([=] {
-        threadIdx.x = t;
-        blockIdx.x = b;
+      ts.emplace_back([=, &warps] {
+        threadIdx = dim3(t % block.x, t / block.x % block.y, t / (block.x * block.y));
+        blockIdx = dim3(b % grid.x, b / grid.x % grid.y, b / (grid.x * grid.y));
+        t_warp = warps[t / kWarp].get();
+        t_lane = t % kWarp;
         t_log = &g_logs[static_cast<size_t>(b) * threads + t];
         kernel(args...);
       });
@@ -132,9 +203,22 @@ def _launches_to_calls(text: str) -> str:
                 cur = ""
             else:
                 cur += ch
-        out.append(f"emu_launch({parts[0]}, {parts[1]}, {m.group(1)}, ")
+        smem = parts[2] if len(parts) > 2 else "0"
+        out.append(f"emu_launch({parts[0]}, {parts[1]}, {smem}, {m.group(1)}, ")
         i = j + 4
     return "".join(out) + text[i:]
+
+
+_EXTERN_SHARED = re.compile(
+    r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?([\w ]+?)\s+(\w+)\[\];")
+
+
+def _dynamic_shared(text: str) -> str:
+    """extern __shared__ T name[]; -> a pointer into the launch's dynamic
+    shared memory."""
+    return _EXTERN_SHARED.sub(
+        lambda m: f"{m.group(1)}* {m.group(2)} = "
+                  f"reinterpret_cast<{m.group(1)}*>(g_dyn_smem.data());", text)
 
 
 def compiler() -> str | None:
@@ -143,18 +227,21 @@ def compiler() -> str | None:
 
 def build(source: str, out_dir: Path) -> ctypes.CDLL:
     """csrc/<source> built for the host CPU into out_dir; the loaded library."""
-    from plonky2_bls12_381_pairing_torch.ops.rns import kernel_tables
+    from plonky2_bls12_381_pairing_torch.ops import cuda_build
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "rns_tables.h").write_text(kernel_tables.header_text())
+    for name, text in cuda_build.headers().items():
+        (out_dir / name).write_text(text)
     (out_dir / "cuda_runtime.h").write_text(_RUNTIME)
     (out_dir / "rns_emu_extend.h").write_text(_EXTEND)
     src = out_dir / (Path(source).stem + ".cpp")
-    src.write_text(_launches_to_calls((CSRC / source).read_text()))
+    src.write_text(_dynamic_shared(_launches_to_calls((CSRC / source).read_text())))
     lib = out_dir / f"lib{Path(source).stem}.so"
-    subprocess.run([compiler() or "g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-w", "-DRNS_HOST_EMU", "-I", str(out_dir), "-I", str(CSRC), "-o",
-                    str(lib), str(src)], check=True, capture_output=True, text=True)
+    proc = subprocess.run([compiler() or "g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+                           "-pthread", "-w", "-DRNS_HOST_EMU", "-I", str(out_dir), "-I",
+                           str(CSRC), "-o", str(lib), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the host build of {source} failed:\n{proc.stderr[-4000:]}")
     out = ctypes.CDLL(str(lib))
     out.emu_log_len.argtypes = [ctypes.c_int]
     out.emu_log_data.argtypes = [ctypes.c_int]
@@ -211,3 +298,27 @@ def bind(monkeypatch, kernels, lib: ctypes.CDLL) -> None:
     monkeypatch.setattr(kernels, "_check", check)
     monkeypatch.setattr(kernels, "_rows", rows)
     monkeypatch.setattr(kernels, "_call", call)
+
+
+def bind_limb(monkeypatch, lib: ctypes.CDLL) -> None:
+    """Route ops/cuda_build.py's `rows` and `call`, through which the limb
+    tier's wrappers launch, to `lib`, for CPU tensors; each launch counts in
+    its tier's `launches`, as on a card."""
+    from plonky2_bls12_381_pairing_torch.ops import cuda_build
+
+    def rows(t, batch, tail):
+        if t.dtype != torch.int32:
+            raise TypeError(f"expected int32 rows, got {t.dtype}")
+        return cuda_build.row_view(t, batch, tail)
+
+    def call(name, device, *args):
+        _, entry, argtypes, launches = cuda_build._KERNELS[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        if fn(*args, None) != 0:
+            raise RuntimeError(f"{name} launch refused")
+        launches[name] += 1
+
+    monkeypatch.setattr(cuda_build, "rows", rows)
+    monkeypatch.setattr(cuda_build, "call", call)
