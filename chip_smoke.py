@@ -6,20 +6,22 @@ on one CUDA card and hold them to their references.
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from csrc/ and report nvcc's resource use; for
      the kernels on the tensor-core REDC (cyc_exp.cu, tower_ops.cu,
-     miller.cu) and the warp kernels (pow_static.cu, limb_tower.cu) each
-     kernel's registers, shared memory and spills (none allowed), and the
-     IMMA instructions in the tensor-core sources' SASS;
+     miller.cu) and the warp kernels (pow_static.cu, limb_tower.cu,
+     mont.cu) each kernel's registers, shared memory and spills (none
+     allowed), and the IMMA instructions in the tensor-core sources' SASS;
   2. run each kernel on the card at the shapes the paths give it and hold it
      bit for bit to its plain PyTorch version (the tensor-core kernels also
      at ragged tile counts and with an operand of row stride 0; the Miller
      kernels on the run's own points, miller_run with one and two terms;
-     the warp kernels also at 1, 3, 5 and 127 rows, the limb tower kernel
-     on row views too; pow_static's time per dependent step against its
-     latency model);
+     the warp kernels also at 1, 3, 5 and 127 rows, the limb tower kernel,
+     conv and mont_reduce on row views too, conv with stride-0 operands;
+     pow_static's time per dependent step against its latency model);
      time both,
      count the kernel's bound from the inputs (the REDC base extensions at
      the tensor cores' u8 rate, and at the int32 rate beside it), and time
-     conv's one PyTorch yardstick, a grouped float64 conv1d;
+     conv's one PyTorch yardstick, a grouped float64 conv1d; conv at one
+     cyclotomic squaring's launch of 30 pairs and at one pair, mont_reduce
+     at a 12- and a 2-element stack;
   3. drive the paths at B = 2048 over distinct points k*G1, k*G2 (two
      of them at infinity), the launch counters reset just before each and
      checked just after:
@@ -40,10 +42,11 @@ Phases (any failure exits non-zero; nothing is caught):
          form on all 2048 (the Granger-Scott forms row for row);
        the limb tier's `pairing` (models/pairing.py) on the same points under
          the strategies "auto" (conv, mont_reduce and mont_mul kernels under
-         the plain tower composition) and "fused" (the four limb tower
-         kernels as well): all 2048 outputs of each against the same oracle
-         values, the frozen vectors, the two strategies equal in value; and
-         the two-term `pairing_check` under "fused";
+         the plain tower composition, one conv launch per group of
+         independent products) and "fused" (the four limb tower kernels as
+         well): all 2048 outputs of each against the same oracle values, the
+         frozen vectors, the two strategies equal in value; and the two-term
+         `pairing_check` under "fused";
      and time each;
   4. profile one call of each path: device-busy share and the top kernels.
 The second-to-last lines are the card's name and power limit and a JSON
@@ -53,6 +56,7 @@ object with each kernel's numbers; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import json
 import multiprocessing
 import os
@@ -77,6 +81,7 @@ from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _GS_SEG
 from plonky2_bls12_381_pairing_torch.ops import cuda_build
 from plonky2_bls12_381_pairing_torch.ops import curve as lcurve
 from plonky2_bls12_381_pairing_torch.ops import fp as lfp
+from plonky2_bls12_381_pairing_torch.ops import fq2 as lfq2
 from plonky2_bls12_381_pairing_torch.ops import fq6 as lfq6
 from plonky2_bls12_381_pairing_torch.ops import fq12 as lfq12
 from plonky2_bls12_381_pairing_torch.ops.kernels import mont as lmont
@@ -303,6 +308,28 @@ def bound_ms(nbytes: int, ops) -> tuple[float, str, float | None]:
                                                                        int32_only)
 
 
+def prepared_conv(pairs: list) -> tuple:
+    """One conv launch of `pairs` ((BATCH, 48) operands) with its argument
+    struct, row views and output made once: calling the first element
+    enqueues the kernel and nothing else; the second is the output."""
+    arg, keep = lmont._ConvPairs(), []
+    for i, (a, b) in enumerate(pairs):
+        av, arg.sa[i] = lmont._rows48(a, (BATCH,))
+        bv, arg.sb[i] = lmont._rows48(b, (BATCH,))
+        arg.a[i], arg.b[i] = av.data_ptr(), bv.data_ptr()
+        keep += [av, bv]
+    out = torch.empty((len(pairs), BATCH, 95), dtype=torch.int32, device=pairs[0][0].device)
+    entry = cuda_build.entry("conv")
+
+    def launch():
+        err = entry(ctypes.addressof(arg), len(pairs), out.data_ptr(), BATCH,
+                    lmont.conv_rows_per_warp(len(pairs), BATCH),
+                    torch.cuda.current_stream().cuda_stream)
+        assert err == 0 and keep, f"conv launch failed: CUDA error {err}"
+
+    return launch, out
+
+
 def time_kernel(fn, reps: int, batch: int = 1) -> float:
     """Median milliseconds of one call, from CUDA events around `batch` calls
     (fn takes the call's index). With batch > 1 the stream is first held busy
@@ -435,8 +462,9 @@ def mark(label: str) -> None:
 
 #: the sources whose kernels run the tensor-core REDC (csrc/rns_redc_tc.cuh)
 TC_SOURCES = ("cyc_exp.cu", "tower_ops.cu", "miller.cu")
-#: the warp kernels: their tables and scratch live in registers, no spills
-WARP_SOURCES = ("pow_static.cu", "limb_tower.cu")
+#: the sources of the warp kernels (mont.cu also holds the block-wide
+#: mont_mul): their tables and scratch live in registers, no spills
+WARP_SOURCES = ("pow_static.cu", "limb_tower.cu", "mont.cu")
 #: row counts of the warp kernels' checks besides the paths' shapes: odd
 #: counts that end the grid on a partial block
 ODD_ROWS = (1, 3, 5, 127)
@@ -519,21 +547,54 @@ EXPECTED_LAUNCHES = {
 #: to their plain versions all the same.
 OFF_PATH = ("fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square")
 # The limb tier. Under "auto" every product is composed of conv and
-# mont_reduce launches (None: at least one), and the Fermat inverse of the
-# final exponentiation is a chain of fused mont_mul launches; the limb tower
-# kernels stay unused. Under "fused" the Miller loop's 68 ells and 62 squares
-# and the final exponentiation's products and cyclotomic squarings (two
-# products of the easy part, then the hard part's program) are one tower
-# kernel each.
+# mont_reduce launches: one conv launch per group of independent products
+# (fp.form), one mont_reduce launch per stacked reduction; the Fermat
+# inverse of the final exponentiation is a chain of fused mont_mul launches;
+# the limb tower kernels stay unused. Under "fused" the Miller loop's 68
+# ells and 62 squares and the final exponentiation's products and
+# cyclotomic squarings (two products of the easy part, then the hard part's
+# program) are one tower kernel each.
 _HP_OPS = lmp._HP_PROG[:, 0].tolist()
-_LIMB_AUTO = {"conv": None, "mont_reduce": None, "mont_mul": pow_mont_muls(rm.P - 2)}
-_LIMB_FUSED = {**_LIMB_AUTO, "limb_fq12_mul_by_014": 68, "limb_fq12_square": 62,
-               "limb_fq12_mul": 2 + _HP_OPS.count(lmp._OP_MUL),
-               "limb_fq12_cyclotomic_square": _HP_OPS.count(lmp._OP_CYCSQ)}
+#: (conv, mont_reduce) launches of one call of each limb step under "auto"
+#: (ops/lines.py, fq12.py, fq6.py, fq2.py, models/pairing.py _scale_coeffs):
+#: a doubling step's three stages; an addition step's five stages of 15 Fq2
+#: products reduced one by one; the coefficient scaling's two scalings; the
+#: Frobenius map's two fq6 maps and its three gamma products (7 Fq2
+#: products); the inverse's groups (the norm's squares, fq6.inv's products,
+#: its norm, fq2.inv's two, the scalings, the two fq6 products)
+LIMB_STEP_LAUNCHES = {
+    "doubling_step": (3, 3), "addition_step": (5, 15), "scale_coeffs": (1, 2),
+    "mul": (1, 1), "square": (1, 1), "mul_by_014": (1, 1), "cyclotomic_square": (1, 1),
+    "frobenius_map": (2, 7), "inv": (7, 12),
+}
+
+
+def limb_launches(strategy: str, terms: int) -> dict:
+    """Exact launches of the limb tier's pairing / multi_pairing of `terms`
+    terms: prepare (63 doubling and 5 addition steps per term), the Miller
+    loop (a scaling per term, 68 ells per term, 62 squares), the final
+    exponentiation (inverse, two products and two Frobenius maps, then the
+    hard part's program)."""
+    steps = {"doubling_step": 63 * terms, "addition_step": 5 * terms,
+             "scale_coeffs": terms, "mul_by_014": 68 * terms, "square": 62, "inv": 1,
+             "mul": 2 + _HP_OPS.count(lmp._OP_MUL),
+             "cyclotomic_square": _HP_OPS.count(lmp._OP_CYCSQ),
+             "frobenius_map": 2 + _HP_OPS.count(lmp._OP_FROB)}
+    tower = ("mul", "square", "mul_by_014", "cyclotomic_square")
+    out = {"conv": 0, "mont_reduce": 0, "mont_mul": pow_mont_muls(rm.P - 2)}
+    for step, n in steps.items():
+        if strategy == "fused" and step in tower:
+            out[f"limb_fq12_{step}"] = n
+            continue
+        out["conv"] += n * LIMB_STEP_LAUNCHES[step][0]
+        out["mont_reduce"] += n * LIMB_STEP_LAUNCHES[step][1]
+    return out
+
+
 EXPECTED_LAUNCHES.update({
-    "limb_pairing_auto": _LIMB_AUTO,
-    "limb_pairing_fused": _LIMB_FUSED,
-    "limb_pairing_check_2_fused": {**_LIMB_FUSED, "limb_fq12_mul_by_014": 2 * 68},
+    "limb_pairing_auto": limb_launches("auto", 1),
+    "limb_pairing_fused": limb_launches("fused", 1),
+    "limb_pairing_check_2_fused": limb_launches("fused", 2),
 })
 
 
@@ -874,7 +935,16 @@ def main() -> int:
                                   + out_numel * 4, ops)}
             return got
 
-        # component views again in the copies: the same row stride
+        def check_many(name, gots, wants, note):
+            torch.cuda.synchronize()
+            assert [g.shape for g in gots] == [w.shape for w in wants]
+            err = max(max_abs_err(g, w) for g, w in zip(gots, wants))
+            print(f"[{name}] {note} kernel vs plain: max |diff| {err}")
+            assert err == 0, f"{name} disagrees with its plain version"
+            return err
+
+        # conv at one pair, (2048, 48) component views (row stride 12 * 48),
+        # for continuity with earlier runs; the copies are views too
         views = [(la.clone()[:, 3], lb.clone()[:, 7]) for _ in range(4)]
         limb_case("conv", "mont.cu", f"{TPU_LIMB_MONT}:194", lmont.conv, lmont.conv_plain,
                   (lx, ly), BATCH * 95, BATCH * LIMB_CONV_OPS, copies=views)
@@ -882,13 +952,61 @@ def main() -> int:
         # (the port never calls it): a float64 convolution grouped by row,
         # the second operand flipped, padded to the 95 columns, exact below
         # 2^53; on float64 operands made before the timing, four copies
-        lib_ops = [(x.double()[None], y.double().flip(-1)[:, None]) for x, y in views]
         lib_conv = lambda x, w: torch.nn.functional.conv1d(x, w, padding=LC.NLIMBS - 1,
-                                                           groups=BATCH)[0]
+                                                           groups=w.shape[0])[0]
+        lib_ops = [(x.double()[None], y.double().flip(-1)[:, None]) for x, y in views]
         assert torch.equal(lib_conv(*lib_ops[0]).to(torch.int32), lmont.conv(*views[0]))
-        kern["conv"]["library_ms"] = time_kernel(lambda i: lib_conv(*lib_ops[i % 4]), 5,
-                                                 batch=50)
-        del lib_ops
+        one = kern["conv"]
+        one["extra"] = {
+            "ms_one_pair": one["ms"], "plain_ms_one_pair": one["plain_ms"],
+            "bound_ms_one_pair": one["bound"][0],
+            "library_ms_one_pair": time_kernel(lambda i: lib_conv(*lib_ops[i % 4]), 5,
+                                               batch=50)}
+        # and at one cyclotomic squaring's launch, the group the path
+        # launches most (30 pairs: component views of the element, their
+        # sums), captured from fp.conv_many on four copies of the operand
+        conv_many = lfp.conv_many
+        groups = []
+        lfp.conv_many = lambda pairs: groups.append([p[:2] for p in pairs]) or conv_many(pairs)
+        try:
+            for x in [lcyc] + [lcyc.clone() for _ in range(3)]:
+                lfq12.cyclotomic_square(x)
+        finally:
+            lfp.conv_many = conv_many
+        assert [len(g) for g in groups] == [30] * 4
+        g30 = groups[0]
+        err = max(one["max_abs_err"], check_many(
+            "conv", lmont.conv_many(g30), [lmont.conv_plain(a, b) for a, b in g30],
+            f"one cyclotomic squaring's 30 pairs at {BATCH} rows:"))
+        for n in ODD_ROWS:
+            # the operands' own row views (strides 12 * 48, 2 * 48, 48) cut
+            # to n rows, and the first operand's first row broadcast
+            part = [(a[:n], b[:n]) for a, b in g30]
+            bcast = [(a[:1].expand(n, LC.NLIMBS), b[:n]) for a, b in g30]
+            for case, note in ((part, f"30 pairs at {n} rows, row views:"),
+                               (bcast, f"30 pairs at {n} rows, stride 0:")):
+                err = max(err, check_many("conv", lmont.conv_many(case),
+                                          [lmont.conv_plain(a, b) for a, b in case], note))
+        operands = {(t.data_ptr(), t.stride()): t for pair in g30 for t in pair}
+        lib_ops = [(torch.cat([a.expand(BATCH, -1) for a, _ in g]).double()[None],
+                    torch.cat([b.expand(BATCH, -1) for _, b in g]).double().flip(-1)[:, None])
+                   for g in groups]
+        assert torch.equal(lib_conv(*lib_ops[0]).to(torch.int32),
+                           torch.cat(lmont.conv_many(g30)))
+        # timed on launches whose arguments are made once: the wrapper's
+        # host work for 30 pairs (their row views, the argument struct)
+        # would outlast the held stream
+        launches = [prepared_conv(g) for g in groups]
+        launches[0][0]()
+        assert torch.equal(launches[0][1], torch.stack(lmont.conv_many(g30)))
+        one.update({
+            "max_abs_err": err,
+            "ms": time_kernel(lambda i: launches[i % 4][0](), 5, batch=50),
+            "plain_ms": time_host(lambda: [lmont.conv_plain(a, b) for a, b in g30], 3),
+            "bound": bound_ms(nbytes(*operands.values()) + len(g30) * BATCH * 95 * 4,
+                              len(g30) * BATCH * LIMB_CONV_OPS),
+            "library_ms": time_kernel(lambda i: lib_conv(*lib_ops[i % 4]), 5, batch=50)})
+        del lib_ops, groups, g30, operands, part, bcast, launches
         # a stack of steps against one operand broadcast over them (stride
         # 0, copied by the wrapper), as the coefficient scaling passes it
         steps = la[:, None, 0].expand(BATCH, 5, 48)
@@ -907,6 +1025,35 @@ def main() -> int:
                         lmont.mont_reduce_plain, (stack, r_lo, r_hi), BATCH * 12 * 48,
                         BATCH * 12 * limb_reduce_ops(lmont.first_pass_count(r_lo, r_hi)))
         assert torch.equal(got, lfq12.mul(la, lb)), "the stack is fq12.mul's"
+        # and the 2-element stack of one Fq2 product (fq2.mul, the addition
+        # steps', Frobenius maps' and inverse's reductions)
+        w2 = lfq2.mul_wide(la[:, 0:2], lb[:, 2:4])
+        stack2 = torch.stack([w2[0].cols, w2[1].cols], dim=-2)
+        lo2, hi2 = min(w.col_lo for w in w2), max(w.col_hi for w in w2)
+        err = max(kern["mont_reduce"]["max_abs_err"], check(
+            "mont_reduce", lmont.mont_reduce(stack2, lo2, hi2),
+            lmont.mont_reduce_plain(stack2, lo2, hi2), tuple(stack2.shape)))
+        assert torch.equal(lmont.mont_reduce(stack2, lo2, hi2),
+                           lfq2.mul(la[:, 0:2], lb[:, 2:4])), "the stack is fq2.mul's"
+        copies2 = [stack2.clone() for _ in range(4)]
+        kern["mont_reduce"]["extra"] = {
+            "ms_stack2": time_kernel(lambda i: lmont.mont_reduce(copies2[i % 4], lo2, hi2), 5,
+                                     batch=50),
+            "bound_ms_stack2": bound_ms(nbytes(stack2) + BATCH * 2 * 48 * 4, BATCH * 2
+                                        * limb_reduce_ops(lmont.first_pass_count(lo2, hi2)))[0]}
+        for n in ODD_ROWS:
+            # n rows, and n rows read in place through a row stride that is
+            # not the dense one: one element of the stack (stride 12 * 95)
+            # and the stack's first 60 columns (stride 95)
+            for case, lo, hi, note in (
+                    (stack[:n], r_lo, r_hi, f"rows {n}:"),
+                    (stack[:n, 5], r_lo, r_hi, f"rows {n}, one element:"),
+                    (stack[:n, :, :60], r_lo, r_hi, f"rows {n}, 60 of 95 columns:"),
+                    (stack2[:n], lo2, hi2, f"rows {n}, 2-element stack:")):
+                err = max(err, check("mont_reduce", lmont.mont_reduce(case, lo, hi),
+                                     lmont.mont_reduce_plain(case, lo, hi), note))
+        kern["mont_reduce"]["max_abs_err"] = err
+        del copies2, stack2, w2
         got = limb_case("mont_mul", "mont.cu", f"{TPU_LIMB_MONT}:236", lmont.mont_mul,
                         lmont.mont_mul_plain, (lx, ly), BATCH * 48,
                         BATCH * (LIMB_CONV_OPS + limb_reduce_ops(
@@ -934,6 +1081,7 @@ def main() -> int:
         for name, k in kern.items():
             extra = "" if k["bound"][2] is None else f" [int32 only {k['bound'][2]:.4f}]"
             extra += f", library {k['library_ms']:.4f} ms" if "library_ms" in k else ""
+            extra += "".join(f", {key} {v:.4f}" for key, v in k.get("extra", {}).items())
             print(f"[{name}] {k['ms']:.4f} ms, plain {k['plain_ms']:.2f} ms, bound "
                   f"{k['bound'][0]:.4f} ms by {k['bound'][1]}{extra}")
 
@@ -1132,7 +1280,10 @@ def main() -> int:
          # the RNS kernels' bound with the base extensions at the int32 rate
          **({"bound_int32_ms": kern[name]["bound"][2]}
             if kern[name]["bound"][2] is not None else {}),
-         "library_ms": kern[name].get("library_ms")}
+         "library_ms": kern[name].get("library_ms"),
+         # conv at one pair beside its 30-pair launch; mont_reduce at a
+         # 2-element stack beside the 12-element one
+         **kern[name].get("extra", {})}
         for name in order]}
     print(card)
     print(json.dumps(report))

@@ -24,6 +24,12 @@ embedded below. Every kernel it times is held to its plain version.
      wrappers, and the time of its stages: copies of csrc/limb_tower.cu that
      stop after stage k (1 the operand slots, 2 the operand sums, 3 the
      products' columns).
+  5. csrc/mont.cu's two warp kernels at 1, 2, 4, 8 and 16 warps per block:
+     conv on 30 pairs of (2048, 48) operands in one launch (a cyclotomic
+     squaring's group) and on one pair, mont_reduce on a (2048, 12, 95)
+     stack and a (2048, 2, 95) one; the 30-pair conv at each count of rows
+     per warp, cut short (its loads, staging and stores alone; without its
+     atomic adds), and with launch bounds for 6 and 8 blocks per SM.
 Prints the card's name and power limit first and last.
 """
 
@@ -40,6 +46,7 @@ import torch
 
 from plonky2_bls12_381_pairing_torch import constants as LC
 from plonky2_bls12_381_pairing_torch.ops import cuda_build
+from plonky2_bls12_381_pairing_torch.ops.kernels import mont as lmont
 from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
 from plonky2_bls12_381_pairing_torch.ops.rns import fp
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
@@ -211,6 +218,31 @@ def tower_stop_edits(k: int) -> list[tuple[str, str, int]]:
             for stage, label, v in stages]
 
 
+def conv_stop_edits(k: int) -> list[tuple[str, str, int]]:
+    """mont.cu's conv kernel cut short: k = 1 without the runs' products
+    and sums (the loads, the staging and the stores alone); k = 2 with the
+    products but their sums stored into shared memory instead of added
+    atomically (both wrong results, for the time of the parts left out)."""
+    piece = "        conv_piece(s.x, y, c, lo, acc);\n"
+    add = "        add_rotated(s.out, c, (lo - max(0, c - NLIMBS)) / PIECE, acc);"
+    if k == 1:
+        return [(piece + add, "        acc[0] = y[lo];\n        store4(&s.out[c], acc);", 1)]
+    return [(add, "        store4(&s.out[c], acc);", 1)]
+
+
+def conv_blocks_edits(n: int) -> list[tuple[str, str, int]]:
+    """mont.cu with the conv kernel's launch bounds asking for n blocks per
+    SM (the compiler caps its registers to fit them)."""
+    return [("__launch_bounds__(WARP * CONV_WARPS)\n    conv_kernel",
+             f"__launch_bounds__(WARP * CONV_WARPS, {n})\n    conv_kernel", 1)]
+
+
+def mont_warps_edits(w: int) -> list[tuple[str, str, int]]:
+    """mont.cu with w warps (rows) per block in both warp kernels."""
+    return [(f"constexpr int {name} = {shipped};", f"constexpr int {name} = {w};", 1)
+            for name, shipped in (("CONV_WARPS", 8), ("REDUCE_WARPS", 4))]
+
+
 def edited(src: Path, edits: list[tuple[str, str, int]]) -> str:
     text = src.read_text()
     for anchor, replacement, count in edits:
@@ -243,12 +275,16 @@ def nvcc(sources: dict[str, str]) -> dict:
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """The median over five samples of `reps` queued calls, per call."""
+    """The median over five samples of `reps` queued calls, per call; the
+    stream is held busy for about 10 ms first, so that the host has queued
+    them all before the first one starts (short launches would otherwise
+    time the host's enqueue)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(5):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(0.01 * 1.98e9))
         start.record()
         for _ in range(reps):
             fn()
@@ -272,7 +308,14 @@ def main() -> int:
         (OUT / name).write_text(text)
     pow_src, tower_src = CSRC / "pow_static.cu", CSRC / "limb_tower.cu"
     warps = (1, 2, 4, 8)
-    libs = nvcc({"block_pow": BLOCK_POW,
+    mont_warps = (1, 2, 4, 8, 16)
+    libs = nvcc({**{f"mont_warps{w}": edited(CSRC / "mont.cu", mont_warps_edits(w))
+                    for w in mont_warps},
+                 **{f"conv_stop{k}": edited(CSRC / "mont.cu", conv_stop_edits(k))
+                    for k in (1, 2)},
+                 **{f"conv_blocks{n}": edited(CSRC / "mont.cu", conv_blocks_edits(n))
+                    for n in (6, 8)},
+                 "block_pow": BLOCK_POW,
                  "pow_stamped": edited(pow_src, POW_STAMP_EDITS),
                  **{f"pow_warps{w}": edited(pow_src, [("constexpr int WARPS = 1;",
                                                        f"constexpr int WARPS = {w};", 1)])
@@ -358,6 +401,64 @@ def main() -> int:
     for line in cuda_build.build_log.get("limb_tower.cu", "").splitlines():
         if "registers" in line or "spill" in line:
             print(f"[ptxas] limb_tower.cu: {line.strip()}")
+
+    # 5. mont.cu's warp kernels by warps per block
+    sa = torch.from_numpy(rng.integers(0, 517, (rows, 30, 2, 48), dtype=np.int32)).to(dev)
+    pairs = [(sa[:, j, 0], sa[:, j, 1]) for j in range(30)]  # row stride 30 * 2 * 48
+    arg = lmont._ConvPairs()
+    for j, (x, y) in enumerate(pairs):
+        arg.a[j], arg.b[j] = x.data_ptr(), y.data_ptr()
+        arg.sa[j] = arg.sb[j] = x.stride(0)
+    conv_out = torch.empty((30, rows, 95), dtype=torch.int32, device=dev)
+    conv_want = torch.stack([lmont.conv_plain(x, y) for x, y in pairs])
+    cols = torch.stack([lmont.conv_plain(x, y) for x, y in pairs[:12]], dim=1)  # (rows, 12, 95)
+    hi = 48 * 516 * 516
+    npass = lmont.first_pass_count(0, hi)
+    def conv(lib, k, per_warp=0):
+        err = lib.limb_conv_launch(P(ctypes.addressof(arg)), I(k), P(conv_out.data_ptr()),
+                                   I(rows), I(per_warp or lmont.conv_rows_per_warp(k, rows)),
+                                   stream())
+        assert err == 0, err
+
+    def conv_checked(lib, per_warp=0):
+        conv_out.zero_()
+        conv(lib, 30, per_warp)
+        torch.cuda.synchronize()
+        return torch.equal(conv_out, conv_want)
+
+    for w in mont_warps:
+        lib = libs[f"mont_warps{w}"]
+        assert conv_checked(lib), f"conv at {w} warps per block"
+        times = [time_ms(lambda: conv(lib, 30)), time_ms(lambda: conv(lib, 1))]
+        for n in (12, 2):
+            red_in = cols[:, :n].contiguous()
+            red_out = torch.empty((rows, n, 48), dtype=torch.int32, device=dev)
+            red = lambda: lib.limb_mont_reduce_launch(
+                P(red_in.data_ptr()), ctypes.c_longlong(95), I(95), I(npass),
+                P(red_out.data_ptr()), I(rows * n), stream())
+            assert red() == 0
+            torch.cuda.synchronize()
+            assert torch.equal(red_out, lmont.mont_reduce_plain(red_in, 0, hi)), (w, n)
+            times.append(time_ms(red))
+        print(f"[mont] {w} warp(s) per block: conv 30 pairs {times[0]:.4f} ms, one pair "
+              f"{times[1]:.4f} ms; mont_reduce (2048, 12, 95) {times[2]:.4f} ms, "
+              f"(2048, 2, 95) {times[3]:.4f} ms")
+    lib = libs["mont_warps8"]  # conv as shipped
+    for n in range(1, lmont.CONV_ROWS_PER_WARP + 1):
+        assert conv_checked(lib, n), f"conv at {n} rows per warp"
+        print(f"[mont] conv 30 pairs at {n} row(s) per warp: "
+              f"{time_ms(lambda: conv(lib, 30, n)):.4f} ms (the rule's: "
+              f"{lmont.conv_rows_per_warp(30, rows)})")
+    for k, label in ((1, "the loads, staging and stores alone"),
+                     (2, "without the atomic adds")):
+        print(f"[mont] conv 30 pairs, {label}: "
+              f"{time_ms(lambda: conv(libs[f'conv_stop{k}'], 30)):.4f} ms")
+    for n in (6, 8):
+        lib = libs[f"conv_blocks{n}"]
+        assert conv_checked(lib), f"conv at {n} blocks per SM"
+        print(f"[mont] conv with launch bounds for {n} blocks per SM: 30 pairs "
+              f"{time_ms(lambda: conv(lib, 30)):.4f} ms, one pair "
+              f"{time_ms(lambda: conv(lib, 1)):.4f} ms")
     print(f"[card] {card}")
     return 0
 

@@ -1,13 +1,14 @@
 // Device functions shared by the limb tier's kernels (mont.cu,
 // limb_tower.cu): the 48 x 48 limb convolution and the scan-free Montgomery
-// reduction (R = 2^408) on radix-2^8 int32 limbs, block-wide (mont.cu) and
-// on one warp (limb_tower.cu).
+// reduction (R = 2^408) on radix-2^8 int32 limbs, block-wide (mont.cu's
+// mont_mul) and on one warp (mont.cu's conv and mont_reduce, limb_tower.cu).
 //
-// Work is laid out as the TPU kernels lay out their lanes: one thread per
-// column ("lane", 128 of them: 95 convolution columns, 100 working columns
-// of the reduction, the rest zero), a group of 128 threads per row. A block
-// holds LIMB_GROUPS groups (threadIdx.y); every group runs the same static
-// sequence of steps, so the block-wide barriers inside are uniform.
+// The block-wide form lays work out as the TPU kernels lay out their lanes:
+// one thread per column ("lane", 128 of them: 95 convolution columns, 100
+// working columns of the reduction, the rest zero), a group of 128 threads
+// per row. A block holds GROUPS groups (threadIdx.y); every group runs the
+// same static sequence of steps, so the block-wide barriers inside are
+// uniform.
 //
 // Everything is exact integer arithmetic in int32: `>>` on a negative int is
 // arithmetic and `&` two's-complement, as in the plain PyTorch versions. The
@@ -103,7 +104,7 @@ __device__ __forceinline__ int mont_reduce_lanes(int col, int lane, Scratch& sc,
 }
 
 // ---------------------------------------------------------------------------
-// The warp-synchronous reduction (limb_tower.cu)
+// The warp-synchronous reduction (mont.cu's mont_reduce, limb_tower.cu)
 // ---------------------------------------------------------------------------
 //
 // The same reduction, steps and pass counts as mont_reduce_lanes, on one
@@ -120,8 +121,9 @@ constexpr int COLS_PER_THREAD = LANES / WARP;  // 4
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int PAD = 4;  // zeros before digit 0 of a padded constant row
 
-// Scratch of one warp's reduction: t (later s) and m, 128 columns each.
-struct WarpScratch {
+// Scratch of one warp's reduction: t (later s) and m, 128 columns each
+// (16-byte aligned: store4 writes them).
+struct alignas(16) WarpScratch {
   int t[LANES];
   int m[LANES];
 };

@@ -61,15 +61,17 @@ def prepare_g2(q: G2Affine) -> torch.Tensor:
 
 def _scale_coeffs(p: G1Affine, q_infinity: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     """Scale all 68 line triples by the G1 point in one batched op (ell's
-    c0*P.y, c1*P.x), and substitute multiply-by-one triples for infinity
-    terms so the Miller body needs no masking."""
+    c0*P.y, c1*P.x: four convolutions formed together), and substitute
+    multiply-by-one triples for infinity terms so the Miller body needs no
+    masking."""
     c0 = coeffs[..., 0, :, :]  # (..., 68, 2, L)
     c1 = coeffs[..., 1, :, :]
     c2 = coeffs[..., 2, :, :]
     py = p.y[..., None, :]  # broadcast over the 68 steps (a stride-0 view)
     px = p.x[..., None, :]
-    c0s = fq2.scale_fp(c0, py.expand(c0.shape[:-2] + (fp.NLIMBS,)))
-    c1s = fq2.scale_fp(c1, px.expand(c1.shape[:-2] + (fp.NLIMBS,)))
+    c0s, c1s = fq2.mul_group(
+        fq2.scale_fp_products(c0, py.expand(c0.shape[:-2] + (fp.NLIMBS,))),
+        fq2.scale_fp_products(c1, px.expand(c1.shape[:-2] + (fp.NLIMBS,))))
     scaled = torch.stack([c0s, c1s, c2], dim=-3)  # (..., 68, 3, 2, L)
     # identity triple for mul_by_014(c2=one, c1=0, c0=0): ell multiplies by 1
     ident = torch.zeros_like(scaled)

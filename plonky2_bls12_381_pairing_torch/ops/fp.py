@@ -19,12 +19,17 @@ of the same name gives on the CPU.
   * Stored elements are weakly reduced; equality, sign and export sites
     canonicalize first.
 
+  * Independent products are formed together: a product's operand half
+    (Products: its ConvPairs and the combine of their Wides) is gathered
+    with others and formed by one conv_many, one kernel launch on the card
+    for every group that no reduction separates (fq12.mul's 63 products).
+
 Strategy (set_strategy), one switch for the tier:
-  "auto" / "kernels"  on a CUDA tensor conv (48 x 48), mont_reduce (<= 95
-                      columns) and mont_mul launch the CUDA kernels of
-                      ops/kernels/mont.py; on a CPU tensor the same functions
-                      run their plain versions here. The fused mont_mul gives
-                      the rows of mont_reduce(conv(a, b)).
+  "auto" / "kernels"  on a CUDA tensor conv / conv_many (48 x 48),
+                      mont_reduce (<= 95 columns) and mont_mul launch the
+                      CUDA kernels of ops/kernels/mont.py; on a CPU tensor
+                      the same functions run their plain versions here. The
+                      fused mont_mul gives the rows of mont_reduce(conv(a, b)).
   "plain"             plain PyTorch on either device.
   "fused"             additionally fq12.mul / square / mul_by_014 /
                       cyclotomic_square run the tower kernels of
@@ -39,6 +44,7 @@ Exactness invariants (asserted statically via tracked bounds):
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -231,23 +237,75 @@ def conv_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.flip(-1).unsqueeze(-1) * windows).sum(-2, dtype=torch.int32)
 
 
-def conv(a: torch.Tensor, b: torch.Tensor, a_max: int = SEMI_DIG, b_max: int = SEMI_DIG,
-         a_val: int = SEMI_VAL, b_val: int = SEMI_VAL) -> Wide:
-    """Variable x variable limb convolution.
+class ConvPair(NamedTuple):
+    """The operands of one product, non-negative int32 limbs a (..., na) and
+    b (..., nb), with their digit and value bounds."""
 
-    a: (..., na), b: (..., nb) non-negative int32 limbs, accumulated exactly
-    in int32 (asserted from the operands' digit bounds)."""
-    na, nb = a.shape[-1], b.shape[-1]
-    hi = min(na, nb) * a_max * b_max
-    assert hi < _I32_EXACT, (
-        f"int32 exactness violated: {min(na, nb)}*{a_max}*{b_max} >= 2^31")
-    if _use_kernels(a) and na == NLIMBS and nb == NLIMBS:
+    a: torch.Tensor
+    b: torch.Tensor
+    a_max: int = SEMI_DIG
+    b_max: int = SEMI_DIG
+    a_val: int = SEMI_VAL
+    b_val: int = SEMI_VAL
+
+
+def conv_many(pairs: Sequence[ConvPair]) -> list[Wide]:
+    """Variable x variable limb convolutions of independent products, each
+    accumulated exactly in int32 (asserted from its operands' digit bounds)
+    and returned as a Wide with its own bounds. Under the kernels strategy
+    the 48 x 48 pairs on the card go to one conv_many launch (per batch
+    shape); the others, and every pair on the CPU, to conv_cols."""
+    cols: list = [None] * len(pairs)
+    col_hi, kernel = [], []
+    for j, p in enumerate(pairs):
+        na, nb = p.a.shape[-1], p.b.shape[-1]
+        col_hi.append(min(na, nb) * p.a_max * p.b_max)
+        assert col_hi[-1] < _I32_EXACT, (
+            f"int32 exactness violated: {min(na, nb)}*{p.a_max}*{p.b_max} >= 2^31")
+        if _use_kernels(p.a) and na == NLIMBS and nb == NLIMBS:
+            kernel.append(j)
+        else:
+            cols[j] = conv_cols(p.a, p.b)
+    if kernel:
         from .kernels import mont as _km
 
-        cols = _km.conv(a, b)
-    else:
-        cols = conv_cols(a, b)
-    return Wide(cols, 0, hi, 0, a_val * b_val)
+        for j, c in zip(kernel, _km.conv_many([pairs[j][:2] for j in kernel])):
+            cols[j] = c
+    return [Wide(c, 0, hi, 0, p.a_val * p.b_val) for c, hi, p in zip(cols, col_hi, pairs)]
+
+
+def conv(a: torch.Tensor, b: torch.Tensor, a_max: int = SEMI_DIG, b_max: int = SEMI_DIG,
+         a_val: int = SEMI_VAL, b_val: int = SEMI_VAL) -> Wide:
+    """Variable x variable limb convolution: one ConvPair's Wide."""
+    return conv_many([ConvPair(a, b, a_max, b_max, a_val, b_val)])[0]
+
+
+class Products(NamedTuple):
+    """Independent products not yet formed: their operand pairs, and the
+    combine that turns their Wides (in the pairs' order) into a result."""
+
+    pairs: tuple
+    combine: Callable
+
+
+def gather(parts: Sequence[Products], combine: Callable = list) -> Products:
+    """Several parts' products as one group: `combine` receives the list of
+    the parts' results."""
+    def combine_parts(wides):
+        results, i = [], 0
+        for part in parts:
+            results.append(part.combine(wides[i:i + len(part.pairs)]))
+            i += len(part.pairs)
+        return combine(results)
+
+    return Products(tuple(x for part in parts for x in part.pairs), combine_parts)
+
+
+def form(*parts: Products) -> list:
+    """Form the products of every part in one conv_many call (one kernel
+    launch on the card); the parts' results, in order."""
+    group = gather(parts)
+    return group.combine(conv_many(group.pairs))
 
 
 def conv_const(x: torch.Tensor, name: str, x_max: int, n_const_terms: int) -> torch.Tensor:

@@ -3,7 +3,10 @@ package's ops/fq12.py: an element is (..., 12, NLIMBS) Montgomery limbs in
 flat tower order [c0.c0.c0, c0.c0.c1, c0.c1.c0, ..., c1.c2.c1].
 
 All products are Karatsuba-over-Fq6 in wide (unreduced-column) form with one
-stacked Montgomery reduction for all 12 Fp output components. Under the
+stacked Montgomery reduction for all 12 Fp output components; each op's
+convolutions are formed together (fp.form: one conv launch on the card, 63
+pairs for mul, 42 for square, 43 for mul_by_014, 30 for cyclotomic_square).
+Under the
 "fused" strategy (fp.set_strategy) mul, square, mul_by_014 and
 cyclotomic_square run the tower kernels of ops/kernels/tower.py instead: the
 CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor, equal in
@@ -117,9 +120,8 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if fp.use_fused():
         return _fused().fq12_mul(a, b)
     a0, a1, b0, b1 = c0(a), c1(a), c0(b), c1(b)
-    t0 = fq6.mul_wide(a0, b0)
-    t1 = fq6.mul_wide(a1, b1)
-    t01 = fq6.mul_wide(fp.add(a0, a1), fp.add(b0, b1))
+    t0, t1, t01 = fp.form(fq6.mul_products(a0, b0), fq6.mul_products(a1, b1),
+                          fq6.mul_products(fp.add(a0, a1), fp.add(b0, b1)))
     out0 = fq6.add_wide(t0, fq6.mul_by_nonresidue_wide(t1))
     out1 = fq6.sub_wide(fq6.sub_wide(t01, t0), t1)
     return _reduce12(out0, out1)
@@ -131,10 +133,9 @@ def square(a: torch.Tensor) -> torch.Tensor:
     if fp.use_fused():
         return _fused().fq12_square(a)
     a0, a1 = c0(a), c1(a)
-    ab = fq6.mul_wide(a0, a1)
     s = fp.add(a0, a1)
     t = fp.add(a0, fq6.mul_by_nonresidue(a1))
-    st = fq6.mul_wide(s, t)
+    ab, st = fp.form(fq6.mul_products(a0, a1), fq6.mul_products(s, t))
     out0 = fq6.sub_wide(fq6.sub_wide(st, ab), fq6.mul_by_nonresidue_wide(ab))
     out1 = fq6.add_wide(ab, ab)
     return _reduce12(out0, out1)
@@ -152,10 +153,9 @@ def mul_by_014(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
         d = torch.cat([x.expand(shape) for x in (d0, d1, d4)], dim=-2)
         return _fused().fq12_mul_by_014(a, d)
     a0, a1 = c0(a), c1(a)
-    aa = fq6.mul_by_01_wide(a0, d0, d1)
-    bb = fq6.mul_by_1_wide(a1, d4)
     d14 = fq2.add(d1, d4)
-    t1 = fq6.mul_by_01_wide(fp.add(a0, a1), d0, d14)
+    aa, bb, t1 = fp.form(fq6.mul_by_01_products(a0, d0, d1), fq6.mul_by_1_products(a1, d4),
+                         fq6.mul_by_01_products(fp.add(a0, a1), d0, d14))
     out0 = fq6.add_wide(fq6.mul_by_nonresidue_wide(bb), aa)
     out1 = fq6.sub_wide(fq6.sub_wide(t1, aa), bb)
     return _reduce12(out0, out1)
@@ -164,36 +164,34 @@ def mul_by_014(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
 def inv(a: torch.Tensor) -> torch.Tensor:
     """(c0 - c1 w)/(c0^2 - v c1^2)."""
     a0, a1 = c0(a), c1(a)
-    t = fq6.reduce(
-        fq6.sub_wide(fq6.square_wide(a0),
-                     fq6.mul_by_nonresidue_wide(fq6.square_wide(a1)))
-    )
+    sq0, sq1 = fp.form(fq6.square_products(a0), fq6.square_products(a1))
+    t = fq6.reduce(fq6.sub_wide(sq0, fq6.mul_by_nonresidue_wide(sq1)))
     tinv = fq6.inv(t)
-    out0 = fq6.mul(a0, tinv)
-    out1 = fq6.neg(fq6.mul(a1, tinv))
+    w0, w1 = fp.form(fq6.mul_products(a0, tinv), fq6.mul_products(a1, tinv))
+    out0 = fq6.reduce(w0)
+    out1 = fq6.neg(fq6.reduce(w1))
     return pack(out0, out1)
 
 
-def _fp4_square_wide(a: torch.Tensor, b: torch.Tensor):
-    """Squaring in Fq4 = Fq2[w]/(w^2 - xi), wide outputs."""
-    t0 = fq2.square_wide(a)
-    t1 = fq2.square_wide(b)
-    t2 = fq2.sub_wide(
-        fq2.sub_wide(
-            fq2.mul_wide_generic(a + b, a + b, x_max=2 * fp.SEMI_DIG,
-                                 x_val=2 * fp.SEMI_VAL,
-                                 y_max=2 * fp.SEMI_DIG, y_val=2 * fp.SEMI_VAL),
-            t0,
-        ),
-        t1,
-    )
+def _fp4_square_combine(r: list):
+    t0, t1, s = r
+    t2 = fq2.sub_wide(fq2.sub_wide(s, t0), t1)
     c0 = fq2.add_wide(fq2.mul_by_nonresidue_wide(t1), t0)
     return c0, t2
 
 
+def _fp4_square_products(a: torch.Tensor, b: torch.Tensor) -> fp.Products:
+    """Squaring in Fq4 = Fq2[w]/(w^2 - xi), wide outputs: 10 convolutions."""
+    d2, v2 = 2 * fp.SEMI_DIG, 2 * fp.SEMI_VAL
+    return fp.gather([fq2.square_products(a), fq2.square_products(b),
+                      fq2.mul_generic_products(a + b, a + b, x_max=d2, x_val=v2,
+                                               y_max=d2, y_val=v2)],
+                     _fp4_square_combine)
+
+
 def cyclotomic_square(a: torch.Tensor) -> torch.Tensor:
     """Granger-Scott squaring, valid in the cyclotomic subgroup. Three Fq4
-    squares + one stacked reduce."""
+    squares (30 convolutions, formed together) + one stacked reduce."""
     if fp.use_fused():
         return _fused().fq12_cyclotomic_square(a)
     z0 = a[..., 0:2, :]
@@ -203,18 +201,16 @@ def cyclotomic_square(a: torch.Tensor) -> torch.Tensor:
     z1 = a[..., 8:10, :]
     z5 = a[..., 10:12, :]
 
-    t0, t1 = _fp4_square_wide(z0, z1)
+    (t0, t1), (t2, t3), (t4, t5) = fp.form(
+        _fp4_square_products(z0, z1), _fp4_square_products(z2, z3),
+        _fp4_square_products(z4, z5))
     nz0 = fq2.sub_wide(fq2.scale_small_wide(t0, 3), fq2.scale_small_wide(fq2.to_wide_mont(z0), 2))
     nz1 = fq2.add_wide(fq2.scale_small_wide(t1, 3), fq2.scale_small_wide(fq2.to_wide_mont(z1), 2))
-
-    t0, t1 = _fp4_square_wide(z2, z3)
-    t2, t3 = _fp4_square_wide(z4, z5)
-
-    nz4 = fq2.sub_wide(fq2.scale_small_wide(t0, 3), fq2.scale_small_wide(fq2.to_wide_mont(z4), 2))
-    nz5 = fq2.add_wide(fq2.scale_small_wide(t1, 3), fq2.scale_small_wide(fq2.to_wide_mont(z5), 2))
-    t3xi = fq2.mul_by_nonresidue_wide(t3)
-    nz2 = fq2.add_wide(fq2.scale_small_wide(t3xi, 3), fq2.scale_small_wide(fq2.to_wide_mont(z2), 2))
-    nz3 = fq2.sub_wide(fq2.scale_small_wide(t2, 3), fq2.scale_small_wide(fq2.to_wide_mont(z3), 2))
+    nz4 = fq2.sub_wide(fq2.scale_small_wide(t2, 3), fq2.scale_small_wide(fq2.to_wide_mont(z4), 2))
+    nz5 = fq2.add_wide(fq2.scale_small_wide(t3, 3), fq2.scale_small_wide(fq2.to_wide_mont(z5), 2))
+    t5xi = fq2.mul_by_nonresidue_wide(t5)
+    nz2 = fq2.add_wide(fq2.scale_small_wide(t5xi, 3), fq2.scale_small_wide(fq2.to_wide_mont(z2), 2))
+    nz3 = fq2.sub_wide(fq2.scale_small_wide(t4, 3), fq2.scale_small_wide(fq2.to_wide_mont(z3), 2))
 
     return fp.mont_reduce_stack(
         [nz0[0], nz0[1], nz4[0], nz4[1], nz3[0], nz3[1],
@@ -224,14 +220,13 @@ def cyclotomic_square(a: torch.Tensor) -> torch.Tensor:
 
 def frobenius_map(a: torch.Tensor) -> torch.Tensor:
     """frob6(c0) + gamma12 * frob6(c1) w with the generated constant."""
-    f0 = fq6.frobenius_map(c0(a))
-    f1 = fq6.frobenius_map(c1(a))
+    w0, w1 = fp.form(fq6.frobenius_products(c0(a)), fq6.frobenius_products(c1(a)))
+    f0 = fq6.frobenius_finish(c0(a), w0)
+    f1 = fq6.frobenius_finish(c1(a), w1)
     g = fq6.frob_const("FROB_GAMMA12_MONT", a.device)
-    parts = []
-    for i in range(3):
-        comp = fq6.c(f1, i)
-        parts.append(fq2.mul(comp, g.expand_as(comp)))
-    return pack(f0, fq6.pack(*parts))
+    comps = [fq6.c(f1, i) for i in range(3)]
+    return pack(f0, fq6.pack(*fq2.mul_group(
+        *(fq2.mul_products(comp, g.expand_as(comp)) for comp in comps))))
 
 
 def frobenius_pow(a: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,11 +1,15 @@
 """Batched Fq2 = Fp[u]/(u^2+1) on limb vectors, the counterpart of the JAX
 package's ops/fq2.py: an element is (..., 2, NLIMBS) Montgomery limbs.
 
-Two API tiers:
+Three API tiers:
   * canonical ops (mul, square, inv, ...) returning reduced limbs;
   * ``*_wide`` ops returning pairs of fp.Wide — unreduced column accumulators
     that the Fq6/Fq12 layers combine before a single stacked Montgomery
-    reduction per output component (lazy reduction).
+    reduction per output component (lazy reduction);
+  * ``*_products`` ops, the operand halves of the wide products (fp.Products:
+    the convolutions' operand pairs and the combine that gives the wide
+    pair), which callers gather so that a group of independent products is
+    formed by one fp.form (one conv launch on the card).
 """
 
 from __future__ import annotations
@@ -102,10 +106,7 @@ def mul_by_nonresidue(a: torch.Tensor) -> torch.Tensor:
 
 def scale_fp(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Multiply both components by an Fp scalar k (..., NLIMBS)."""
-    w0 = fp.conv(c0(a), k)
-    w1 = fp.conv(c1(a), k)
-    out = fp.mont_reduce_stack([w0, w1])
-    return out
+    return reduce(scale_fp_wide(a, k))
 
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -126,15 +127,58 @@ def is_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def mul_wide(a: torch.Tensor, b: torch.Tensor) -> WidePair:
-    """Karatsuba product as unreduced columns:
+def _karatsuba(w: list) -> WidePair:
+    t0, t1, tsum = w
+    return (t0 - t1, tsum - t0 - t1)
+
+
+def _schoolbook(w: list) -> WidePair:
+    t0, t1, t01, t10 = w
+    return (t0 - t1, t01 + t10)
+
+
+def mul_products(a: torch.Tensor, b: torch.Tensor) -> fp.Products:
+    """Karatsuba product, 3 convolutions:
     c0 = a0b0 - a1b1,  c1 = (a0+a1)(b0+b1) - a0b0 - a1b1."""
     a0, a1, b0, b1 = c0(a), c1(a), c0(b), c1(b)
-    t0 = fp.conv(a0, b0)
-    t1 = fp.conv(a1, b1)
-    tsum = fp.conv(a0 + a1, b0 + b1, a_max=2 * fp.SEMI_DIG, b_max=2 * fp.SEMI_DIG,
-                   a_val=2 * fp.SEMI_VAL, b_val=2 * fp.SEMI_VAL)
-    return (t0 - t1, tsum - t0 - t1)
+    d2, v2 = 2 * fp.SEMI_DIG, 2 * fp.SEMI_VAL
+    return fp.Products((fp.ConvPair(a0, b0), fp.ConvPair(a1, b1),
+                        fp.ConvPair(a0 + a1, b0 + b1, d2, d2, v2, v2)), _karatsuba)
+
+
+def square_products(a: torch.Tensor) -> fp.Products:
+    return mul_products(a, a)
+
+
+def mul_generic_products(x: torch.Tensor, y: torch.Tensor, x_max: int = fp.SEMI_DIG,
+                         x_val: int = fp.SEMI_VAL, y_max: int = fp.SEMI_DIG,
+                         y_val: int = fp.SEMI_VAL) -> fp.Products:
+    """Wide Fq2 product for operands with relaxed (up to ~10-bit) limbs.
+
+    Uses Karatsuba (3 convs) when the limb-sum operands stay below 2^24 per
+    column (the JAX package's float32 budget, kept so that the rows agree),
+    else falls back to 4-conv schoolbook."""
+    a0, a1 = c0(x), c1(x)
+    b0, b1 = c0(y), c1(y)
+    t0 = fp.ConvPair(a0, b0, x_max, y_max, x_val, y_val)
+    t1 = fp.ConvPair(a1, b1, x_max, y_max, x_val, y_val)
+    if fp.NLIMBS * (2 * x_max) * (2 * y_max) < (1 << 24):
+        tsum = fp.ConvPair(a0 + a1, b0 + b1, 2 * x_max, 2 * y_max, 2 * x_val, 2 * y_val)
+        return fp.Products((t0, t1, tsum), _karatsuba)
+    t01 = fp.ConvPair(a0, b1, x_max, y_max, x_val, y_val)
+    t10 = fp.ConvPair(a1, b0, x_max, y_max, x_val, y_val)
+    return fp.Products((t0, t1, t01, t10), _schoolbook)
+
+
+def scale_fp_products(a: torch.Tensor, k: torch.Tensor, k_max: int = fp.SEMI_DIG,
+                      k_val: int = fp.SEMI_VAL) -> fp.Products:
+    """(a0*k, a1*k), k an Fp limb vector."""
+    return fp.Products((fp.ConvPair(c0(a), k, b_max=k_max, b_val=k_val),
+                        fp.ConvPair(c1(a), k, b_max=k_max, b_val=k_val)), tuple)
+
+
+def mul_wide(a: torch.Tensor, b: torch.Tensor) -> WidePair:
+    return fp.form(mul_products(a, b))[0]
 
 
 def square_wide(a: torch.Tensor) -> WidePair:
@@ -144,22 +188,7 @@ def square_wide(a: torch.Tensor) -> WidePair:
 def mul_wide_generic(x: torch.Tensor, y: torch.Tensor, x_max: int = fp.SEMI_DIG,
                      x_val: int = fp.SEMI_VAL, y_max: int = fp.SEMI_DIG,
                      y_val: int = fp.SEMI_VAL) -> WidePair:
-    """Wide Fq2 product for operands with relaxed (up to ~10-bit) limbs.
-
-    Uses Karatsuba (3 convs) when the limb-sum operands stay below 2^24 per
-    column (the JAX package's float32 budget, kept so that the rows agree),
-    else falls back to 4-conv schoolbook."""
-    a0, a1 = c0(x), c1(x)
-    b0, b1 = c0(y), c1(y)
-    t0 = fp.conv(a0, b0, a_max=x_max, b_max=y_max, a_val=x_val, b_val=y_val)
-    t1 = fp.conv(a1, b1, a_max=x_max, b_max=y_max, a_val=x_val, b_val=y_val)
-    if fp.NLIMBS * (2 * x_max) * (2 * y_max) < (1 << 24):
-        tsum = fp.conv(a0 + a1, b0 + b1, a_max=2 * x_max, b_max=2 * y_max,
-                       a_val=2 * x_val, b_val=2 * y_val)
-        return (t0 - t1, tsum - t0 - t1)
-    t01 = fp.conv(a0, b1, a_max=x_max, b_max=y_max, a_val=x_val, b_val=y_val)
-    t10 = fp.conv(a1, b0, a_max=x_max, b_max=y_max, a_val=x_val, b_val=y_val)
-    return (t0 - t1, t01 + t10)
+    return fp.form(mul_generic_products(x, y, x_max, x_val, y_max, y_val))[0]
 
 
 def mul_by_nonresidue_wide(w: WidePair) -> WidePair:
@@ -177,8 +206,7 @@ def sub_wide(x: WidePair, y: WidePair) -> WidePair:
 def scale_fp_wide(a: torch.Tensor, k: torch.Tensor, k_max: int = fp.SEMI_DIG,
                   k_val: int = fp.SEMI_VAL) -> WidePair:
     """(a0*k, a1*k) as wides, k an Fp limb vector."""
-    return (fp.conv(c0(a), k, b_max=k_max, b_val=k_val),
-            fp.conv(c1(a), k, b_max=k_max, b_val=k_val))
+    return fp.form(scale_fp_products(a, k, k_max, k_val))[0]
 
 
 def as_wide(a: torch.Tensor, a_max: int = fp.SEMI_DIG, a_val: int = fp.SEMI_VAL) -> WidePair:
@@ -223,6 +251,12 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return reduce(mul_wide(a, b))
 
 
+def mul_group(*parts: fp.Products) -> list[torch.Tensor]:
+    """Independent Fq2 products (mul_products, square_products, ...), each
+    reduced on its own as mul gives it; their convolutions formed together."""
+    return [reduce(w) for w in fp.form(*parts)]
+
+
 def square(a: torch.Tensor) -> torch.Tensor:
     return reduce(square_wide(a))
 
@@ -230,14 +264,12 @@ def square(a: torch.Tensor) -> torch.Tensor:
 def inv(a: torch.Tensor) -> torch.Tensor:
     """(a0 - a1 u)/(a0^2 + a1^2); 0 -> 0 via the Fermat-inverse inv0 property
     ."""
-    n0 = fp.conv(c0(a), c0(a))
-    n1 = fp.conv(c1(a), c1(a))
+    n0, n1 = fp.conv_many([fp.ConvPair(c0(a), c0(a)), fp.ConvPair(c1(a), c1(a))])
     norm = fp.mont_reduce(n0 + n1)
     ninv = fp.inv(norm)
-    w0 = fp.conv(c0(a), ninv)
     neg_a1, m, v = fp.neg_relaxed(c1(a))
-    w1 = fp.conv(neg_a1, ninv, a_max=m, a_val=v)
-    return fp.mont_reduce_stack([w0, w1])
+    return fp.mont_reduce_stack(fp.conv_many([fp.ConvPair(c0(a), ninv),
+                                              fp.ConvPair(neg_a1, ninv, m, a_val=v)]))
 
 
 def mul_small(a: torch.Tensor, k: int) -> torch.Tensor:

@@ -100,29 +100,80 @@ def is_equal(a, b):
 # ---------------------------------------------------------------------------
 
 
-def mul_wide(a: torch.Tensor, b: torch.Tensor) -> WideTriple:
-    """s0 = t0 + xi*((a1+a2)(b1+b2) - t1 - t2)
-    s1 = (a0+a1)(b0+b1) - t0 - t1 + xi*t2
-    s2 = (a0+a2)(b0+b2) - t0 - t2 + t1        (fq6_target_tree.rs:172-214)."""
-    a0, a1, a2 = c(a, 0), c(a, 1), c(a, 2)
-    b0, b1, b2 = c(b, 0), c(b, 1), c(b, 2)
-    t0 = fq2.mul_wide(a0, b0)
-    t1 = fq2.mul_wide(a1, b1)
-    t2 = fq2.mul_wide(a2, b2)
-    m12 = _mul_wide_sum(a1, a2, b1, b2)
-    m01 = _mul_wide_sum(a0, a1, b0, b1)
-    m02 = _mul_wide_sum(a0, a2, b0, b2)
+def _mul_combine(r: list) -> WideTriple:
+    """s0 = t0 + xi*(m12 - t1 - t2), s1 = m01 - t0 - t1 + xi*t2,
+    s2 = m02 - t0 - t2 + t1."""
+    t0, t1, t2, m12, m01, m02 = r
     s0 = fq2.add_wide(t0, fq2.mul_by_nonresidue_wide(fq2.sub_wide(fq2.sub_wide(m12, t1), t2)))
     s1 = fq2.add_wide(fq2.sub_wide(fq2.sub_wide(m01, t0), t1), fq2.mul_by_nonresidue_wide(t2))
     s2 = fq2.add_wide(fq2.sub_wide(fq2.sub_wide(m02, t0), t2), t1)
     return (s0, s1, s2)
 
 
-def _mul_wide_sum(x0, x1, y0, y1) -> fq2.WidePair:
-    """fq2 wide product of limb-wise sums (x0+x1)(y0+y1), 9-bit operand limbs."""
+def mul_products(a: torch.Tensor, b: torch.Tensor) -> fp.Products:
+    """s0 = t0 + xi*((a1+a2)(b1+b2) - t1 - t2)
+    s1 = (a0+a1)(b0+b1) - t0 - t1 + xi*t2
+    s2 = (a0+a2)(b0+b2) - t0 - t2 + t1        (fq6_target_tree.rs:172-214):
+    21 convolutions."""
+    a0, a1, a2 = c(a, 0), c(a, 1), c(a, 2)
+    b0, b1, b2 = c(b, 0), c(b, 1), c(b, 2)
+    return fp.gather([fq2.mul_products(a0, b0), fq2.mul_products(a1, b1),
+                      fq2.mul_products(a2, b2), _sum_products(a1, a2, b1, b2),
+                      _sum_products(a0, a1, b0, b1), _sum_products(a0, a2, b0, b2)],
+                     _mul_combine)
+
+
+def _sum_products(x0, x1, y0, y1) -> fp.Products:
+    """fq2 product of limb-wise sums (x0+x1)(y0+y1), 9-bit operand limbs."""
     d2, v2 = 2 * fp.SEMI_DIG, 2 * fp.SEMI_VAL
-    return fq2.mul_wide_generic(x0 + x1, y0 + y1, x_max=d2, x_val=v2,
-                                y_max=d2, y_val=v2)
+    return fq2.mul_generic_products(x0 + x1, y0 + y1, x_max=d2, x_val=v2,
+                                    y_max=d2, y_val=v2)
+
+
+def square_products(a: torch.Tensor) -> fp.Products:
+    return mul_products(a, a)
+
+
+def _mul_by_01_combine(r: list) -> WideTriple:
+    t0, t1, m12, m01, t2 = r
+    s0 = fq2.add_wide(fq2.mul_by_nonresidue_wide(fq2.sub_wide(m12, t1)), t0)
+    s1 = fq2.sub_wide(fq2.sub_wide(m01, t0), t1)
+    s2 = fq2.add_wide(t2, t1)
+    return (s0, s1, s2)
+
+
+def mul_by_01_products(a: torch.Tensor, b0: torch.Tensor, b1: torch.Tensor) -> fp.Products:
+    """Sparse product with (b0 + b1 v) (reference fq6_target_tree.rs:232-259):
+    s0 = xi*((a1+a2)*b1 - t1) + t0
+    s1 = (b0+b1)(a0+a1) - t0 - t1
+    s2 = a2*b0 + t1:  17 convolutions."""
+    a0, a1, a2 = c(a, 0), c(a, 1), c(a, 2)
+    return fp.gather([fq2.mul_products(a0, b0), fq2.mul_products(a1, b1),
+                      _half_products(a1 + a2, b1), _half_products(a0 + a1, b0 + b1),
+                      fq2.mul_products(a2, b0)], _mul_by_01_combine)
+
+
+def _half_products(xs: torch.Tensor, ys: torch.Tensor) -> fp.Products:
+    """fq2 product where either operand may have limbs <= 510."""
+    d2, v2 = 2 * fp.SEMI_DIG, 2 * fp.SEMI_VAL
+    return fq2.mul_generic_products(xs, ys, x_max=d2, x_val=v2,
+                                    y_max=d2, y_val=v2)
+
+
+def _mul_by_1_combine(r: list) -> WideTriple:
+    t2, t0, t1 = r
+    return (fq2.mul_by_nonresidue_wide(t2), t0, t1)
+
+
+def mul_by_1_products(a: torch.Tensor, b1: torch.Tensor) -> fp.Products:
+    """Sparse product with (b1 v) (reference fq6_target_tree.rs:261-268):
+    (xi*(a2*b1), a0*b1, a1*b1): 9 convolutions."""
+    return fp.gather([fq2.mul_products(c(a, 2), b1), fq2.mul_products(c(a, 0), b1),
+                      fq2.mul_products(c(a, 1), b1)], _mul_by_1_combine)
+
+
+def mul_wide(a: torch.Tensor, b: torch.Tensor) -> WideTriple:
+    return fp.form(mul_products(a, b))[0]
 
 
 def square_wide(a: torch.Tensor) -> WideTriple:
@@ -130,36 +181,11 @@ def square_wide(a: torch.Tensor) -> WideTriple:
 
 
 def mul_by_01_wide(a: torch.Tensor, b0: torch.Tensor, b1: torch.Tensor) -> WideTriple:
-    """Sparse product with (b0 + b1 v) (reference fq6_target_tree.rs:232-259):
-    s0 = xi*((a1+a2)*b1 - t1) + t0
-    s1 = (b0+b1)(a0+a1) - t0 - t1
-    s2 = a2*b0 + t1."""
-    a0, a1, a2 = c(a, 0), c(a, 1), c(a, 2)
-    t0 = fq2.mul_wide(a0, b0)
-    t1 = fq2.mul_wide(a1, b1)
-    m12 = _mul_wide_half(a1 + a2, b1)
-    m01 = _mul_wide_half(a0 + a1, b0 + b1)
-    t2 = fq2.mul_wide(a2, b0)
-    s0 = fq2.add_wide(fq2.mul_by_nonresidue_wide(fq2.sub_wide(m12, t1)), t0)
-    s1 = fq2.sub_wide(fq2.sub_wide(m01, t0), t1)
-    s2 = fq2.add_wide(t2, t1)
-    return (s0, s1, s2)
-
-
-def _mul_wide_half(xs: torch.Tensor, ys: torch.Tensor) -> fq2.WidePair:
-    """fq2 wide product where either operand may have limbs <= 510."""
-    d2, v2 = 2 * fp.SEMI_DIG, 2 * fp.SEMI_VAL
-    return fq2.mul_wide_generic(xs, ys, x_max=d2, x_val=v2,
-                                y_max=d2, y_val=v2)
+    return fp.form(mul_by_01_products(a, b0, b1))[0]
 
 
 def mul_by_1_wide(a: torch.Tensor, b1: torch.Tensor) -> WideTriple:
-    """Sparse product with (b1 v) (reference fq6_target_tree.rs:261-268):
-    (xi*(a2*b1), a0*b1, a1*b1)."""
-    s0 = fq2.mul_by_nonresidue_wide(fq2.mul_wide(c(a, 2), b1))
-    s1 = fq2.mul_wide(c(a, 0), b1)
-    s2 = fq2.mul_wide(c(a, 1), b1)
-    return (s0, s1, s2)
+    return fp.form(mul_by_1_products(a, b1))[0]
 
 
 def mul_by_nonresidue_wide(t: WideTriple) -> WideTriple:
@@ -214,30 +240,35 @@ def frob_const(name: str, device) -> torch.Tensor:
 def inv(a: torch.Tensor) -> torch.Tensor:
     """Closed-form adjugate/norm inverse (reference fq6_target_tree.rs:59-89):
     t0 = a0^2 - xi a1 a2; t1 = xi a2^2 - a0 a1; t2 = a1^2 - a0 a2
-    norm = a0 t0 + xi (a2 t1 + a1 t2);  out = (t0, t1, t2) * norm^-1."""
+    norm = a0 t0 + xi (a2 t1 + a1 t2);  out = (t0, t1, t2) * norm^-1.
+    Three groups of products: the t's, the norm's, the scalings."""
     a0, a1, a2 = c(a, 0), c(a, 1), c(a, 2)
-    t0 = fq2.reduce(fq2.sub_wide(fq2.square_wide(a0),
-                                 fq2.mul_by_nonresidue_wide(fq2.mul_wide(a1, a2))))
-    t1 = fq2.reduce(fq2.sub_wide(fq2.mul_by_nonresidue_wide(fq2.square_wide(a2)),
-                                 fq2.mul_wide(a0, a1)))
-    t2 = fq2.reduce(fq2.sub_wide(fq2.square_wide(a1), fq2.mul_wide(a0, a2)))
-    norm_w = fq2.add_wide(
-        fq2.mul_wide(a0, t0),
-        fq2.mul_by_nonresidue_wide(
-            fq2.add_wide(fq2.mul_wide(a2, t1), fq2.mul_wide(a1, t2))
-        ),
-    )
-    norm = fq2.reduce(norm_w)
+    sq0, m12, sq2, m01, sq1, m02 = fp.form(
+        fq2.square_products(a0), fq2.mul_products(a1, a2), fq2.square_products(a2),
+        fq2.mul_products(a0, a1), fq2.square_products(a1), fq2.mul_products(a0, a2))
+    t0 = fq2.reduce(fq2.sub_wide(sq0, fq2.mul_by_nonresidue_wide(m12)))
+    t1 = fq2.reduce(fq2.sub_wide(fq2.mul_by_nonresidue_wide(sq2), m01))
+    t2 = fq2.reduce(fq2.sub_wide(sq1, m02))
+    n0, n2, n1 = fp.form(fq2.mul_products(a0, t0), fq2.mul_products(a2, t1),
+                         fq2.mul_products(a1, t2))
+    norm = fq2.reduce(fq2.add_wide(n0, fq2.mul_by_nonresidue_wide(fq2.add_wide(n2, n1))))
     ninv = fq2.inv(norm)
-    return pack(fq2.mul(t0, ninv), fq2.mul(t1, ninv), fq2.mul(t2, ninv))
+    return pack(*fq2.mul_group(*(fq2.mul_products(t, ninv) for t in (t0, t1, t2))))
+
+
+def frobenius_products(a: torch.Tensor) -> fp.Products:
+    """The two products of frobenius_map: gamma6_1 c1^p and gamma6_2 c2^p."""
+    g1 = frob_const("FROB_GAMMA6_1_MONT", a.device)
+    g2 = frob_const("FROB_GAMMA6_2_MONT", a.device)
+    return fp.gather([fq2.mul_products(fq2.conjugate(c(a, 1)), g1.expand_as(c(a, 1))),
+                      fq2.mul_products(fq2.conjugate(c(a, 2)), g2.expand_as(c(a, 2)))])
+
+
+def frobenius_finish(a: torch.Tensor, w: list) -> torch.Tensor:
+    return pack(fq2.conjugate(c(a, 0)), fq2.reduce(w[0]), fq2.reduce(w[1]))
 
 
 def frobenius_map(a: torch.Tensor) -> torch.Tensor:
     """c0^p + gamma6_1 c1^p v + gamma6_2 c2^p v^2 with the generated constants
     (reference fq6_target_tree.rs:129-169)."""
-    g1 = frob_const("FROB_GAMMA6_1_MONT", a.device)
-    g2 = frob_const("FROB_GAMMA6_2_MONT", a.device)
-    f0 = fq2.conjugate(c(a, 0))
-    f1 = fq2.mul(fq2.conjugate(c(a, 1)), g1.expand_as(c(a, 1)))
-    f2 = fq2.mul(fq2.conjugate(c(a, 2)), g2.expand_as(c(a, 2)))
-    return pack(f0, f1, f2)
+    return frobenius_finish(a, fp.form(frobenius_products(a))[0])

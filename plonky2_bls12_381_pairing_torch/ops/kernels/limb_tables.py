@@ -10,6 +10,8 @@ from here, read off the port's plain formulas:
     quotient-test weights, NEGC and R mod p;
   * the two fixed pass counts of the reduction and the first count of the
     fused product (ops/kernels/mont.py);
+  * the convolution kernel's work split: each thread's two runs of terms of
+    4-column strips (`conv_pieces`) and the most pairs of one launch;
   * per tower formula (ops/kernels/tower.py `formula`): the operand terms,
     the output combinations (as lists of their nonzero terms),
     the product count and the first pass count of its merged reduction.
@@ -23,6 +25,33 @@ from ... import constants as C
 from . import mont, tower
 
 LANES = 128
+#: terms of one run of a 4-column strip in the convolution kernel
+CONV_PIECE_TERMS = 12
+
+
+def conv_pieces() -> np.ndarray:
+    """(32, 4): thread t's two runs of CONV_PIECE_TERMS terms in the
+    convolution kernel (csrc/mont.cu), one of a rising strip (columns c ..
+    c + 3, c < 48) and one of a falling strip, each as (c, first term); -1
+    for none. The 24 strips' terms cut into runs: 30 of each kind, so every
+    thread's loops have the same trip counts. Every run starts at a multiple
+    of 4 (a falling strip at term c - 48, whose y digits lie beyond 47), so
+    that the kernel reads x and y four digits at a time; where a run reaches
+    past a strip's terms it meets zero pads (x beyond digit 47, y outside 0
+    .. 47), which add nothing."""
+    runs = ([], [])
+    for s in range(2 * C.NLIMBS // 4):
+        c = 4 * s
+        lo, hi = max(0, c - C.NLIMBS), min(C.NLIMBS - 1, c + 3)
+        runs[c >= C.NLIMBS].extend((c, i) for i in range(lo, hi + 1, CONV_PIECE_TERMS))
+    # the runs in order of their index within their strip, then of strip
+    rising, falling = (sorted(r, key=lambda cs: (cs[1] - max(0, cs[0] - C.NLIMBS), cs[0]))
+                       for r in runs)
+    assert len(rising) == len(falling) <= 32
+    out = np.full((32, 4), -1, dtype=np.int32)
+    out[: len(rising), :2] = rising
+    out[: len(falling), 2:] = falling
+    return out
 
 
 def _row(values: np.ndarray, n: int = LANES) -> np.ndarray:
@@ -66,6 +95,7 @@ def tables() -> dict[str, np.ndarray]:
         "LIMB_TOWER_OUT_P": out_p,
         "LIMB_TOWER_OUT_C": out_c,
         "LIMB_TOWER_OUT_N": out_n,
+        "LIMB_CONV_PIECE": conv_pieces(),
     }
 
 
@@ -87,6 +117,8 @@ def defines() -> dict[str, int]:
         "LIMB_NPASS_M": mont.NPASS_M,
         "LIMB_NPASS_S": mont.NPASS_S,
         "LIMB_NPASS_MUL": mont.first_pass_count(0, mont.MUL_COL_HI),
+        "LIMB_CONV_KMAX": mont.K_MAX,
+        "LIMB_CONV_PIECE_TERMS": CONV_PIECE_TERMS,
         "LIMB_TOWER_NSLOTS": tower.NSLOTS,
         "LIMB_TOWER_SLOT_B": tower.SLOT_B,
         "LIMB_TOWER_SLOT_NEGC": tower.SLOT_NEGC,

@@ -1,9 +1,12 @@
 """The limb tier's Montgomery kernels (the JAX package's ops/pallas/mont.py):
 hand-written CUDA kernels, their plain PyTorch versions and their wrappers.
 
-  conv(a, b)                       <- pallas/mont.py conv         (csrc/mont.cu)
+  conv_many(pairs), conv(a, b)     <- pallas/mont.py conv         (csrc/mont.cu)
   mont_reduce(cols, col_lo, col_hi) <- pallas/mont.py mont_reduce  (csrc/mont.cu)
   mont_mul(a, b)                   <- pallas/mont.py mont_mul     (csrc/mont.cu)
+
+conv_many convolves up to K_MAX operand pairs in one launch (a tower op's
+independent products); conv(a, b) is conv_many([(a, b)]).
 
 Each wrapper runs its plain version for a tensor on the CPU and launches its
 kernel for a tensor on a CUDA device; there is no fallback between the two.
@@ -18,6 +21,7 @@ The kernels are built and bound by ops/cuda_build.py.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -28,12 +32,37 @@ from ..cuda_build import INT, PTR, STRIDE
 
 NLIMBS = C.NLIMBS
 NCOLS = 2 * NLIMBS - 1  # 95 columns of a 48 x 48 convolution
+#: most operand pairs of one conv launch: fq12.mul's group is 63 products
+#: (three fq6.mul_wide of 9 Karatsuba and 12 schoolbook products)
+K_MAX = 64
+#: warps an H100 holds at once (132 SMs x 64), and the most rows a conv
+#: warp computes in turn
+_CARD_WARPS = 132 * 64
+CONV_ROWS_PER_WARP = 4
 
-#: every entry ends in the output pointer, the row count and the stream;
-#: an operand with a row stride is (PTR, STRIDE); mont_reduce also takes its
-#: column count and the count of its first shift-add passes
+
+def conv_rows_per_warp(k: int, rows: int) -> int:
+    """Rows per warp of a conv launch of k pairs: one while its k * rows
+    warps fit on the card at once, up to CONV_ROWS_PER_WARP beyond, so that
+    a warp loads its next row while it computes one."""
+    return max(1, min(CONV_ROWS_PER_WARP, k * rows // _CARD_WARPS))
+
+
+class _ConvPairs(ctypes.Structure):
+    """csrc/mont.cu's ConvPairs: the pairs' row pointers and row strides,
+    passed by value in the launch's parameters."""
+
+    _fields_ = [("a", PTR * K_MAX), ("b", PTR * K_MAX),
+                ("sa", STRIDE * K_MAX), ("sb", STRIDE * K_MAX)]
+
+
+#: every entry ends in the output pointer, the row count and the stream
+#: (conv: and the rows per warp); an operand with a row stride is (PTR,
+#: STRIDE); conv takes its pairs (a _ConvPairs) and their count;
+#: mont_reduce also takes its column count and the count of its first
+#: shift-add passes
 _KERNELS = {
-    "conv": ("mont.cu", "limb_conv_launch", [PTR, STRIDE] * 2 + [PTR, INT, PTR]),
+    "conv": ("mont.cu", "limb_conv_launch", [PTR, INT, PTR, INT, INT, PTR]),
     "mont_reduce": ("mont.cu", "limb_mont_reduce_launch",
                     [PTR, STRIDE, INT, INT, PTR, INT, PTR]),
     "mont_mul": ("mont.cu", "limb_mont_mul_launch",
@@ -110,40 +139,89 @@ def _rows48(t: torch.Tensor, batch: tuple) -> tuple[torch.Tensor, int]:
     return cuda_build.rows(t, batch, (NLIMBS,))
 
 
-def _pair(name: str, a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
-    if a.device != b.device:
-        raise ValueError(f"operands on {a.device} and {b.device}")
-    batch = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+def _mont_mul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    batch = _batch(a, b)
     av, sa = _rows48(a, batch)
     bv, sb = _rows48(b, batch)  # both alive until the launch is enqueued
-    out = torch.empty((*batch, width), dtype=torch.int32, device=a.device)
-    cuda_build.call(name, a.device, av.data_ptr(), sa, bv.data_ptr(), sb,
+    out = torch.empty((*batch, NLIMBS), dtype=torch.int32, device=a.device)
+    cuda_build.call("mont_mul", a.device, av.data_ptr(), sa, bv.data_ptr(), sb,
                     out.data_ptr(), math.prod(batch))
     return out
 
 
+def _batch(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    if a.device != b.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    return tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+
+
+def _conv_many_kernel(pairs: list, rows_per_warp=None) -> list[torch.Tensor]:
+    """Launch the conv kernel: the pairs of each batch shape, K_MAX at a
+    time, in one launch into one (k, *batch, 95) tensor; pair j's columns
+    are a view of it. Each operand is read in place through one row stride
+    (0 for a broadcast row) where its batch axes merge, else copied. Rows
+    per warp: conv_rows_per_warp's unless given."""
+    out: list = [None] * len(pairs)
+    groups: dict = {}
+    for j, (a, b) in enumerate(pairs):
+        groups.setdefault(_batch(a, b), []).append(j)
+    device = pairs[0][0].device
+    for batch, idx in groups.items():
+        for first in range(0, len(idx), K_MAX):
+            js = idx[first:first + K_MAX]
+            arg, views = _ConvPairs(), []
+            for i, j in enumerate(js):
+                av, arg.sa[i] = _rows48(pairs[j][0], batch)
+                bv, arg.sb[i] = _rows48(pairs[j][1], batch)
+                arg.a[i], arg.b[i] = av.data_ptr(), bv.data_ptr()
+                views += [av, bv]  # alive until the launch is enqueued
+            res = torch.empty((len(js), *batch, NCOLS), dtype=torch.int32, device=device)
+            rows = math.prod(batch)
+            cuda_build.call("conv", device, ctypes.addressof(arg), len(js), res.data_ptr(),
+                            rows, rows_per_warp or conv_rows_per_warp(len(js), rows))
+            for i, j in enumerate(js):
+                out[j] = res[i]
+    return out
+
+
+def conv_many(pairs: list) -> list[torch.Tensor]:
+    """48 x 48 limb convolutions of the operand pairs [(a, b), ...], each
+    (..., 48) x (..., 48) -> (..., 95) int32: on the card one launch per
+    batch shape (and per K_MAX pairs)."""
+    if not pairs:
+        return []
+    if pairs[0][0].device.type == "cpu":
+        return [conv_plain(a, b) for a, b in pairs]
+    return _conv_many_kernel(pairs)
+
+
 def conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """48 x 48 limb convolution (..., 48) x (..., 48) -> (..., 95) int32."""
-    if a.device.type == "cpu":
-        return conv_plain(a, b)
-    return _pair("conv", a, b, NCOLS)
+    return conv_many([(a, b)])[0]
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Fused Montgomery product of stored operands (digits <= SEMI_DIG)."""
     if a.device.type == "cpu":
         return mont_mul_plain(a, b)
-    return _pair("mont_mul", a, b, NLIMBS)
+    return _mont_mul_kernel(a, b)
 
 
 def mont_reduce(cols: torch.Tensor, col_lo: int = 0,
                 col_hi: int = NLIMBS * 255 * 255) -> torch.Tensor:
     """Scan-free Montgomery reduction of (..., K <= 95) signed columns with
     static bounds col_lo > -2^30, col_hi + 2^30 + 255 < 2^31."""
+    if cols.device.type == "cpu":
+        _check_reduce_bounds(cols.shape[-1], col_lo, col_hi)
+        return mont_reduce_plain(cols, col_lo, col_hi)
+    return _mont_reduce_kernel(cols, col_lo, col_hi)
+
+
+def _mont_reduce_kernel(cols: torch.Tensor, col_lo: int, col_hi: int) -> torch.Tensor:
+    """Launch the mont_reduce kernel: the rows read in place through one row
+    stride where the batch axes merge, else copied."""
     ncols = cols.shape[-1]
     _check_reduce_bounds(ncols, col_lo, col_hi)
-    if cols.device.type == "cpu":
-        return mont_reduce_plain(cols, col_lo, col_hi)
     batch = tuple(cols.shape[:-1])
     cv, stride = cuda_build.rows(cols, batch, (ncols,))
     out = torch.empty((*batch, NLIMBS), dtype=torch.int32, device=cols.device)

@@ -5,7 +5,9 @@ line-coefficient triple (c0, c1, c2) of Fq2 elements.
 
 ``doubling_step`` is the hot one (63 of the 68 schedule steps): it is staged
 so all ~10 Fq2 products run as three stacked Montgomery reductions, with every
-linear combination folded into the wide (unreduced-column) domain.
+linear combination folded into the wide (unreduced-column) domain. Each
+stage's products are formed together (fp.form: one conv launch on the card);
+``addition_step`` forms its 15 Fq2 products in five such stages.
 """
 
 from __future__ import annotations
@@ -19,12 +21,11 @@ def doubling_step(r: G2Projective) -> tuple[G2Projective, tuple]:
     """Point doubling + tangent line. Returns (2R, (c0, c1, c2))."""
     x, y, z = r.x, r.y, r.z
 
+    d2, v2 = 2 * fp.SEMI_DIG, 2 * fp.SEMI_VAL
     # -- stage 1: squares of the inputs (one stacked reduce: 4 Fq2 = 8 Fp) ----
-    tmp0_w = fq2.square_wide(x)
-    tmp1_w = fq2.square_wide(y)
-    zsq_w = fq2.square_wide(z)
-    zy2_w = fq2.mul_wide_generic(z + y, z + y, x_max=2 * fp.SEMI_DIG, x_val=2 * fp.SEMI_VAL,
-                                 y_max=2 * fp.SEMI_DIG, y_val=2 * fp.SEMI_VAL)
+    tmp0_w, tmp1_w, zsq_w, zy2_w = fp.form(
+        fq2.square_products(x), fq2.square_products(y), fq2.square_products(z),
+        fq2.mul_generic_products(z + y, z + y, x_max=d2, x_val=v2, y_max=d2, y_val=v2))
     zout_w = fq2.sub_wide(fq2.sub_wide(zy2_w, tmp1_w), zsq_w)
     s1 = fp.mont_reduce_stack(
         [tmp0_w[0], tmp0_w[1], tmp1_w[0], tmp1_w[1],
@@ -40,14 +41,12 @@ def doubling_step(r: G2Projective) -> tuple[G2Projective, tuple]:
     tmp6_op = x + tmp4  # limbs <= 510, used only as a conv operand
 
     # -- stage 2: products + all wide linear combinations (one stacked reduce)
-    tmp2_w = fq2.square_wide(tmp1)
-    t13_w = fq2.mul_wide_generic(tmp1 + x, tmp1 + x, x_max=2 * fp.SEMI_DIG, x_val=2 * fp.SEMI_VAL,
-                                 y_max=2 * fp.SEMI_DIG, y_val=2 * fp.SEMI_VAL)
-    tmp5_w = fq2.square_wide(tmp4)
-    t66_w = fq2.mul_wide_generic(tmp6_op, tmp6_op, x_max=2 * fp.SEMI_DIG, x_val=2 * fp.SEMI_VAL,
-                                 y_max=2 * fp.SEMI_DIG, y_val=2 * fp.SEMI_VAL)
-    t4z_w = fq2.mul_wide(tmp4, zsq)
-    tzz_w = fq2.mul_wide(zout, zsq)
+    tmp2_w, t13_w, tmp5_w, t66_w, t4z_w, tzz_w = fp.form(
+        fq2.square_products(tmp1),
+        fq2.mul_generic_products(tmp1 + x, tmp1 + x, x_max=d2, x_val=v2, y_max=d2, y_val=v2),
+        fq2.square_products(tmp4),
+        fq2.mul_generic_products(tmp6_op, tmp6_op, x_max=d2, x_val=v2, y_max=d2, y_val=v2),
+        fq2.mul_products(tmp4, zsq), fq2.mul_products(zout, zsq))
 
     tmp0w = tmp0_w  # stage-1 product wides are already in the right domain
     tmp1w = tmp1_w
@@ -82,28 +81,34 @@ def doubling_step(r: G2Projective) -> tuple[G2Projective, tuple]:
 
 def addition_step(r: G2Projective, q: G2Affine) -> tuple[G2Projective, tuple]:
     """Mixed addition + chord line (Algorithm 27; 5 of 68 schedule steps, so
-    written plainly with canonical ops). Returns (R+Q, (c0, c1, c2))."""
-    zsquared = fq2.square(r.z)
-    ysquared = fq2.square(q.y)
-    t0 = fq2.mul(zsquared, q.x)
-    t1 = fq2.mul(
-        fq2.sub(fq2.sub(fq2.square(fq2.add(q.y, r.z)), ysquared), zsquared),
-        zsquared,
-    )
+    written plainly with canonical ops, each Fq2 product reduced on its own).
+    Returns (R+Q, (c0, c1, c2))."""
+    # stage A
+    zsquared, ysquared, yz2 = fq2.mul_group(
+        fq2.square_products(r.z), fq2.square_products(q.y),
+        fq2.square_products(fq2.add(q.y, r.z)))
+    # stage B
+    t0, t1 = fq2.mul_group(
+        fq2.mul_products(zsquared, q.x),
+        fq2.mul_products(fq2.sub(fq2.sub(yz2, ysquared), zsquared), zsquared))
     t2 = fq2.sub(t0, r.x)
-    t3 = fq2.square(t2)
+    # stage C
+    t3, zt2 = fq2.mul_group(fq2.square_products(t2), fq2.square_products(fq2.add(r.z, t2)))
     t4 = fq2.mul_small(t3, 4)
-    t5 = fq2.mul(t4, t2)
     t6 = fq2.sub(t1, fq2.add(r.y, r.y))
-    t9 = fq2.mul(t6, q.x)
-    t7 = fq2.mul(t4, r.x)
-    xout = fq2.sub(fq2.sub(fq2.sub(fq2.square(t6), t5), t7), t7)
-    zout = fq2.sub(fq2.sub(fq2.square(fq2.add(r.z, t2)), zsquared), t3)
+    # stage D
+    t5, t9, t7, t66 = fq2.mul_group(
+        fq2.mul_products(t4, t2), fq2.mul_products(t6, q.x), fq2.mul_products(t4, r.x),
+        fq2.square_products(t6))
+    xout = fq2.sub(fq2.sub(fq2.sub(t66, t5), t7), t7)
+    zout = fq2.sub(fq2.sub(zt2, zsquared), t3)
     t10 = fq2.add(q.y, zout)
-    t8 = fq2.mul(fq2.sub(t7, xout), t6)
-    t0b = fq2.mul(r.y, t5)
+    # stage E
+    t8, t0b, t1010, zz = fq2.mul_group(
+        fq2.mul_products(fq2.sub(t7, xout), t6), fq2.mul_products(r.y, t5),
+        fq2.square_products(t10), fq2.square_products(zout))
     yout = fq2.sub(t8, fq2.add(t0b, t0b))
-    t10 = fq2.sub(fq2.sub(fq2.square(t10), ysquared), fq2.square(zout))
+    t10 = fq2.sub(fq2.sub(t1010, ysquared), zz)
     t9 = fq2.sub(fq2.add(t9, t9), t10)
     c0 = fq2.add(zout, zout)
     t6n = fq2.neg(t6)

@@ -9,12 +9,13 @@ with a std::barrier for __syncthreads, one per warp of 32 threads for
 __syncwarp and the shuffles (__shfl_sync, __shfl_up_sync, __shfl_down_sync,
 __shfl_xor_sync, through a per-warp exchange buffer), __shared__ as static
 storage and `extern __shared__` as the launch's dynamic shared memory
-(cudaFuncSetAttribute is a no-op). The build defines RNS_HOST_EMU, under
-which rns_redc_tc.cuh takes `extend` from this module (the tensor-core
-products as the same integer dot products of the same u8 planes, written
-out: their mma.sync fragment layout is the one part left to the card) and
-records every REDC a thread runs, its K input residues and its K outputs,
-for `redc_log`. What the emulator cannot show is left to the card: timing,
+(cudaFuncSetAttribute is a no-op), atomicAdd on int as the host's atomic
+add, and `__grid_constant__` parameters passed by value. The build defines
+RNS_HOST_EMU, under which rns_redc_tc.cuh takes `extend` from this module
+(the tensor-core products as the same integer dot products of the same u8
+planes, written out: their mma.sync fragment layout is the one part left to
+the card) and records every REDC a thread runs, its K input residues and
+its K outputs, for `redc_log`. What the emulator cannot show is left to the card: timing,
 the compiler's limits, and races that its barriers hide.
 
 `bind(monkeypatch, kernels, lib)` points ops/rns/kernels.py's launch
@@ -59,6 +60,7 @@ template <class T> inline T min(T a, T b) { return b < a ? b : a; }
 template <class T> inline T max(T a, T b) { return a < b ? b : a; }
 inline std::barrier<>* g_barrier = nullptr;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 
 // warps: 32 consecutive threads of a block (x fastest, then y), each warp
 // with its own barrier and exchange buffer for the shuffles
