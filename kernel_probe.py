@@ -1,4 +1,4 @@
-"""Where the time of the two warp kernels goes, on one CUDA card.
+"""Where the time of the hand-written kernels goes, on one CUDA card.
 
     python3 kernel_probe.py
 
@@ -30,6 +30,16 @@ embedded below. Every kernel it times is held to its plain version.
      stack and a (2048, 2, 95) one; the 30-pair conv at each count of rows
      per warp, cut short (its loads, staging and stores alone; without its
      atomic adds), and with launch bounds for 6 and 8 blocks per SM.
+  6. csrc/kara_full.cu at the path's shape (1024 packed rows, |BLS_X|'s
+     chain) and at 4 packed rows, in its two designs of the norms' Fermat
+     chains: the shipped one (each step a 6-row REDC of the tensor-core
+     tile, 2 packed rows per block, 4 blocks per SM) and the warp design
+     embedded below (pow_static's warp REDC, no block barrier in the
+     chains, three chains per warp), each also on the other tensor-core
+     kernels' tile of 4 rows at two and at one block per SM; the shipped
+     kernel with its snapshots and inverses in dynamic shared memory
+     instead of the device scratch buffer; and cut short, without the
+     inversion and after the chain alone.
 Prints the card's name and power limit first and last.
 """
 
@@ -45,10 +55,12 @@ import numpy as np
 import torch
 
 from plonky2_bls12_381_pairing_torch import constants as LC
+from plonky2_bls12_381_pairing_torch import rns_constants as RC
+from plonky2_bls12_381_pairing_torch.models.schedule import _KARA_SEGMENTS
 from plonky2_bls12_381_pairing_torch.ops import cuda_build
 from plonky2_bls12_381_pairing_torch.ops.kernels import mont as lmont
 from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
-from plonky2_bls12_381_pairing_torch.ops.rns import fp
+from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernels, tower
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 
 ROOT = Path(__file__).resolve().parent
@@ -243,6 +255,203 @@ def mont_warps_edits(w: int) -> list[tuple[str, str, int]]:
             for name, shipped in (("CONV_WARPS", 8), ("REDUCE_WARPS", 4))]
 
 
+# kara_full.cu's Fermat chains in the warp design: one warp per 64-lane
+# norm with pow_static.cu's REDC, no block barrier in the chains. The tile's
+# norms (six per slot) go to its warps, three each, through shared memory
+# (the REDC tile's sigma planes and sums, free between REDCs); each warp runs
+# its three chains interleaved: sigma rows in warp-private shared memory
+# behind __syncwarp, alpha and beta by __shfl_sync, the extension columns in
+# shared memory (at 64 registers a thread there is no room for them in
+# registers), each column word read once for the three chains.
+KF_WARP = r"""
+constexpr int WCH = TILE * PACK * NSNAP / WARPS;  // chains per warp
+static_assert(WCH * WARPS == TILE * PACK * NSNAP, "the warps share the norms evenly");
+constexpr int C1W = NCH + 2;  // RNS_T1A columns B_LO .. ALPHA_LANE
+constexpr int C2W = NCH + 1;  // RNS_T2B columns 0 .. NCH - 1 and ALPHA_LANE
+constexpr int COLS = (NCH * (C1W + C2W) + 3) / 4 * 4;
+static_assert(sizeof(TcSmem<TILE>::sig) + sizeof(TcSmem<TILE>::ext) >=
+              (COLS + TILE * PACK * NSNAP * SUB) * sizeof(int), "room in the REDC tile");
+
+__device__ __forceinline__ void warp_redc3(int (&x0)[WCH], int (&x1)[WCH], int t,
+                                           const Lane& c0, const Lane& c1, const int* col1,
+                                           const int* col2, int* sig) {
+#pragma unroll
+  for (int q = 0; q < WCH; ++q) sig[q * SUB + t] = mul_m(x0[q], c0.c_sigma, c0);
+  __syncwarp();
+  int qa[WCH], qb[WCH];
+#pragma unroll
+  for (int q = 0; q < WCH; ++q) qa[q] = qb[q] = 0;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    int w[WCH][4];
+#pragma unroll
+    for (int q = 0; q < WCH; ++q) {
+      const int4 s4 = reinterpret_cast<const int4*>(sig + q * SUB)[v];
+      w[q][0] = s4.x; w[q][1] = s4.y; w[q][2] = s4.z; w[q][3] = s4.w;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * v + k;
+      if (i < NCH) {
+        const int ch = col1[i * C1W + 1 + t], c31 = col1[i * C1W];
+#pragma unroll
+        for (int q = 0; q < WCH; ++q) {
+          qa[q] += w[q][k] * ch;
+          qb[q] += w[q][k] * c31;
+        }
+      }
+    }
+  }
+  int q0[WCH], q1[WCH];
+#pragma unroll
+  for (int q = 0; q < WCH; ++q) {
+    const int alpha = __shfl_sync(0xffffffffu, qa[q], 31) >> RNS_ALPHA_T;
+    q0[q] = barrett((c0.is_a ? 0 : qb[q]) - alpha * c0.c_mamod, c0);
+    q1[q] = barrett(qa[q] - alpha * c1.c_mamod, c1);
+    const int sp0 = barrett(x0[q] * c0.c_mainv_mbinv + q0[q] * c0.c_pmainv_mbinv, c0);
+    const int sp1 = barrett(x1[q] * c1.c_mainv_mbinv + q1[q] * c1.c_pmainv_mbinv, c1);
+    sig[q * SUB + 32 + (t == 31 ? 0 : t + 1)] = t == 31 ? sp0 : sp1;
+  }
+  __syncwarp();
+  int s2[WCH];
+#pragma unroll
+  for (int q = 0; q < WCH; ++q) s2[q] = 0;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    int w[WCH][4];
+#pragma unroll
+    for (int q = 0; q < WCH; ++q) {
+      const int4 s4 = reinterpret_cast<const int4*>(sig + q * SUB + 32)[v];
+      w[q][0] = s4.x; w[q][1] = s4.y; w[q][2] = s4.z; w[q][3] = s4.w;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * v + k;
+      if (i < NCH) {
+        const int cc = col2[i * C2W + t];
+#pragma unroll
+        for (int q = 0; q < WCH; ++q) s2[q] += w[q][k] * cc;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < WCH; ++q) {
+    const int beta =
+        (__shfl_sync(0xffffffffu, s2[q], 31) + (1 << (RNS_BETA_T - 1))) >> RNS_BETA_T;
+    x0[q] = barrett(c0.is_a ? s2[q] - beta * c0.c_mbmod
+                            : x0[q] * c0.c_mainv + q0[q] * c0.c_pmainv, c0);
+    x1[q] = barrett(x1[q] * c1.c_mainv + q1[q] * c1.c_pmainv, c1);
+  }
+}
+
+__device__ __forceinline__ void fermat_warp(int (&acc)[NSNAP], const int (&base)[NSNAP],
+                                            TcSmem<TILE>& s, const int* __restrict__ bits,
+                                            int nbits) {
+  int* const col1 = reinterpret_cast<int*>(&s.sig[0][0][0]);
+  int* const col2 = col1 + NCH * C1W;
+  int* const nb = col1 + COLS;  // the norms; during the chains the sigma rows
+  const int l = threadIdx.x % SUB;
+  const int j0 = threadIdx.x / SUB * NSNAP;  // the first norm of the thread's slot
+  __syncthreads();  // the last REDC's reads of its planes and sums are done
+#pragma unroll
+  for (int k = 0; k < NSNAP; ++k) nb[(j0 + k) * SUB + l] = base[k];
+  for (int i = threadIdx.x; i < NCH * C1W; i += THREADS) {
+    col1[i] = RNS_T1A[i / C1W][RNS_B_LO + i % C1W];
+  }
+  for (int i = threadIdx.x; i < NCH * C2W; i += THREADS) {
+    const int j = i % C2W;
+    col2[i] = RNS_T2B[i / C2W][j < NCH ? j : RNS_ALPHA_LANE];
+  }
+  __syncthreads();
+  const int t = threadIdx.x % 32, wp = threadIdx.x / 32;
+  int b0[WCH], b1[WCH], x0[WCH], x1[WCH];
+#pragma unroll
+  for (int q = 0; q < WCH; ++q) {
+    const int j = wp * WCH + q;
+    b0[q] = x0[q] = nb[j * SUB + t];
+    b1[q] = x1[q] = nb[j * SUB + t + 32];
+  }
+  __syncthreads();  // every norm is read before the sigma rows take its words
+  const Lane c0 = load_lane(t), c1 = load_lane(t + 32);
+  int* const sig = nb + wp * WCH * SUB;
+  int bit = nbits > 0 ? bits[0] : 0;
+  for (int i = 0; i < nbits; ++i) {
+    const int next = i + 1 < nbits ? bits[i + 1] : 0;
+#pragma unroll
+    for (int q = 0; q < WCH; ++q) {
+      x0[q] = mul_m(x0[q], x0[q], c0);
+      x1[q] = mul_m(x1[q], x1[q], c1);
+    }
+    warp_redc3(x0, x1, t, c0, c1, col1, col2, sig);
+    if (bit) {
+#pragma unroll
+      for (int q = 0; q < WCH; ++q) {
+        x0[q] = mul_m(x0[q], b0[q], c0);
+        x1[q] = mul_m(x1[q], b1[q], c1);
+      }
+      warp_redc3(x0, x1, t, c0, c1, col1, col2, sig);
+    }
+    bit = next;
+  }
+  __syncthreads();  // every chain is done with the sigma rows
+#pragma unroll
+  for (int q = 0; q < WCH; ++q) {
+    const int j = wp * WCH + q;
+    nb[j * SUB + t] = x0[q];
+    nb[j * SUB + t + 32] = x1[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NSNAP; ++k) acc[k] = nb[(j0 + k) * SUB + l];
+  __syncthreads();  // read before the next REDC writes its planes
+}
+
+"""
+
+KF_KERNEL = "// One block per TILE packed rows (the last tile masked); a and out are\n"
+KF_FERMAT = "  fermat(acc, base, c, s, bits, nbits);\n"
+KF_SMEM_BYTES = "TILE * SCRATCH * LANES * 4"
+
+
+def kf_shape(tile: str, blocks: int) -> list[tuple[str, str, int]]:
+    """kara_full.cu with `tile` packed rows per block and launch bounds for
+    `blocks` blocks per SM (shipped: 2 and 4)."""
+    return [("constexpr int TILE = 2;", f"constexpr int TILE = {tile};", 1),
+            ("__global__ void __launch_bounds__(THREADS, 4)\n    kara_full_kernel",
+             f"__global__ void __launch_bounds__(THREADS, {blocks})\n    kara_full_kernel", 1)]
+
+
+KF_WARP_EDITS = [(KF_KERNEL, KF_WARP + KF_KERNEL, 1),
+                 (KF_FERMAT, "  fermat_warp(acc, base, s, bits, nbits);\n", 1)]
+#: kara_full.cu's variants: name -> anchored edits. The tile design as
+#: shipped, and on the other tensor-core kernels' tile of RNS_TC_ROWS = 4
+#: packed rows at two and at one block per SM; the warp design on both
+#: tiles (64 registers a thread) and on the 4-row tile at one block per SM
+#: (128); the shipped kernel with its scratch in dynamic shared memory, and
+#: cut short.
+KF_VARIANTS = {
+    "kf_tile": [],
+    "kf_tile4": kf_shape("RNS_TC_ROWS", 2),
+    "kf_tile4_1blk": kf_shape("RNS_TC_ROWS", 1),
+    "kf_warp": KF_WARP_EDITS,
+    "kf_warp4": KF_WARP_EDITS + kf_shape("RNS_TC_ROWS", 2),
+    "kf_warp4_1blk": KF_WARP_EDITS + kf_shape("RNS_TC_ROWS", 1),
+    "kf_smem": [("  int* const my = scratch + r.row * SCRATCH * LANES + b.lane;",
+                 "  extern __shared__ int snap_smem[];\n"
+                 "  int* const my = snap_smem + threadIdx.x / LANES * SCRATCH * LANES + b.lane;",
+                 1),
+                ("    kara_full_kernel<<<(rows + TILE - 1) / TILE, THREADS, 0,",
+                 "    cudaFuncSetAttribute(kara_full_kernel,\n"
+                 f"        cudaFuncAttributeMaxDynamicSharedMemorySize, {KF_SMEM_BYTES});\n"
+                 f"    kara_full_kernel<<<(rows + TILE - 1) / TILE, THREADS, {KF_SMEM_BYTES},",
+                 1)],
+    "kf_noinv": [(KF_FERMAT, "#pragma unroll\n  for (int k = 0; k < NSNAP; ++k) acc[k] = base[k];\n",
+                  1)],
+    "kf_chain": [("  // which snapshots have g2 == 0",
+                  "  return;  // the chain alone\n  // which snapshots have g2 == 0", 1)],
+}
+
+
 def edited(src: Path, edits: list[tuple[str, str, int]]) -> str:
     text = src.read_text()
     for anchor, replacement, count in edits:
@@ -321,7 +530,9 @@ def main() -> int:
                                                        f"constexpr int WARPS = {w};", 1)])
                     for w in warps},
                  **{f"tower_stop{k}": edited(tower_src, tower_stop_edits(k))
-                    for k in (1, 2, 3)}})
+                    for k in (1, 2, 3)},
+                 **{name: edited(CSRC / "kara_full.cu", edits)
+                    for name, edits in KF_VARIANTS.items()}})
 
     e = rm.P - 2
     steps = len(fp.exponent_bits(e)) + sum(fp.exponent_bits(e))
@@ -459,6 +670,50 @@ def main() -> int:
         print(f"[mont] conv with launch bounds for {n} blocks per SM: 30 pairs "
               f"{time_ms(lambda: conv(lib, 30)):.4f} ms, one pair "
               f"{time_ms(lambda: conv(lib, 1)):.4f} ms")
+
+    # 6. kara_full's designs at the path's shape, on cyclotomic rows with the
+    # identity in a whole row and in one slot
+    kf_rows, four_rows = 1024, 4
+    ints = np.empty((2 * kf_rows, 12), dtype=object)
+    for idx in np.ndindex(ints.shape):
+        ints[idx] = int.from_bytes(rng.bytes(48), "little") % rm.P
+    f = torch.from_numpy(fp.encode(ints)).to(dev)
+    t0 = tower.mul(tower.conjugate(f), tower.inv(f))
+    cyc = tower.mul(tower.frobenius_pow(t0, 2), t0).contiguous()
+    one = tower.one((), dev)
+    cyc[1] = one
+    cyc[2, :, RC.SUB:] = one[:, RC.SUB:]
+    kf_want = kernels.kara_full_plain(cyc, _KARA_SEGMENTS)
+    segs = torch.tensor(_KARA_SEGMENTS, dtype=torch.int32, device=dev)
+    kbits = torch.tensor(fp.exponent_bits(rm.P - 2), dtype=torch.int32, device=dev)
+    scratch = torch.empty((kf_rows, kernels._KARA_FULL_SCRATCH, RC.LANES), dtype=torch.int32,
+                          device=dev)
+    kf_out = torch.empty_like(cyc)
+
+    def kf(lib, n):
+        err = lib.kara_full_launch(P(cyc.data_ptr()), P(kf_out.data_ptr()),
+                                   P(scratch.data_ptr()), I(n), P(segs.data_ptr()),
+                                   I(segs.numel()), P(kbits.data_ptr()), I(kbits.numel()),
+                                   stream())
+        assert err == 0, err
+
+    kf_ms = {}
+    for name in KF_VARIANTS:
+        kf(libs[name], kf_rows)
+        torch.cuda.synchronize()
+        exact = name not in ("kf_noinv", "kf_chain")
+        assert not exact or torch.equal(kf_out, kf_want), f"{name} disagrees with its plain version"
+        kf_ms[name] = time_ms(lambda: kf(libs[name], kf_rows), 10)
+        four = time_ms(lambda: kf(libs[name], four_rows), 20)
+        note = "rows those of kara_full_plain" if exact else "cut short: timing only"
+        print(f"[kara_full] {name}: {kf_ms[name]:.4f} ms at ({kf_rows}, 12, 128), "
+              f"{four:.4f} ms at ({four_rows}, 12, 128) ({note})")
+    rest = kf_ms["kf_noinv"]
+    for name in ("kf_tile", "kf_tile4", "kf_tile4_1blk", "kf_warp", "kf_warp4",
+                 "kf_warp4_1blk"):
+        print(f"[kara_full] {name}: the inversion {kf_ms[name] - rest:.4f} ms of "
+              f"{kf_ms[name]:.4f}; the rest {rest:.4f} ms, the chain alone "
+              f"{kf_ms['kf_chain']:.4f}")
     print(f"[card] {card}")
     return 0
 

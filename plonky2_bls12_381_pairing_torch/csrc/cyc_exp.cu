@@ -22,12 +22,16 @@
 // the Fq2 products and of REDC steps 1, 3 and 5). Nothing but the final row
 // goes back to device memory.
 //
-// cyc_exp_cond is the kernel's other form: one loop over the exponent's
-// levels, each a squaring and, where the level's flag is set, the product
-// with the base. It replaces the same TPU function in its one-loop build
+// cyc_exp_cond is the same kernel walking the exponent by levels: each level
+// a squaring and, where the level's flag is set, the product with the base.
+// It replaces the same TPU function in its one-loop build
 // (_build_cyc_exp_cond); same operations in the same order, so the same
-// rows. Its plain version is ops/rns/kernels.py cyc_exp_cond_plain. It keeps
-// the one-row blocks and the per-lane dot products of rns_common.cuh.
+// rows. Its plain version is ops/rns/kernels.py cyc_exp_cond_plain.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 2, 1024
+// packed rows, |BLS_X|): cyc_exp 0.815-0.823 ms, cyc_exp_cond 0.824-0.844 ms
+// (2.015-2.036 ms in the one-row blocks of rns_common.cuh that it had
+// before, timed alongside it), against a work bound of 0.026 ms.
 
 #include "rns_redc_tc.cuh"
 #include "rns_tower.cuh"
@@ -41,10 +45,15 @@ constexpr int TILE = RNS_TC_ROWS;
 constexpr int THREADS = TILE * LANES;
 
 // One block per TILE packed rows (the last tile masked); a and out are
-// (rows, 12, 128) int32; segs holds nseg (n_squares, multiply_after) pairs.
+// (rows, 12, 128) int32. The schedule walks the exponent after its leading
+// bit in nsteps steps, each n cyclotomic squarings and then, if flagged, one
+// product with the base: for cyc_exp sched holds (n_squares,
+// multiply_after) pairs; for cyc_exp_cond (LEVELS) one multiply flag per
+// level, each level one squaring.
+template <bool LEVELS>
 __global__ void __launch_bounds__(THREADS, 2)
     cyc_exp_kernel(const int* __restrict__ a, int* __restrict__ out, int rows,
-                   const int* __restrict__ segs, int nseg) {
+                   const int* __restrict__ sched, int nsteps) {
   __shared__ TcSmem<TILE> s;
   __shared__ int bias[2][12][SUB];  // RNS_CYC_BIAS, RNS_MUL_BIAS
   load_tc_tables(s);
@@ -63,10 +72,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   int acc[12];
 #pragma unroll
   for (int k = 0; k < 12; ++k) acc[k] = live ? base[k * LANES] : 0;
-  for (int g = 0; g < nseg; ++g) {
-    const int n_sq = segs[2 * g];
+  for (int g = 0; g < nsteps; ++g) {
+    const int n_sq = LEVELS ? 1 : sched[2 * g];
     for (int i = 0; i < n_sq; ++i) cyc_square<SUB>(acc, c, s, &bias[0][0][l]);
-    if (segs[2 * g + 1]) {
+    if (sched[LEVELS ? g : 2 * g + 1]) {
       // the base is read again for each of the few products (from the L2
       // cache): held in registers for the whole exponent it would spill
       int f[12];
@@ -81,52 +90,25 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// flags holds one multiply flag per level.
-__global__ void __launch_bounds__(LANES)
-    cyc_exp_cond_kernel(const int* __restrict__ a, int* __restrict__ out,
-                        const int* __restrict__ flags, int nlevels) {
-  __shared__ Smem<12> s;
-  load_tables(s);
-  __syncthreads();
-
-  const int lane = threadIdx.x;
-  const int l = lane % SUB;
-  const Lane c = load_lane(l);
-  int cb[12], mb[12];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) {
-    cb[k] = RNS_CYC_BIAS[k][l];
-    mb[k] = RNS_MUL_BIAS[k][l];
+template <bool LEVELS>
+int launch(const int* a, int* out, int rows, const int* sched, int nsteps, void* stream) {
+  if (rows > 0) {
+    cyc_exp_kernel<LEVELS><<<(rows + TILE - 1) / TILE, THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(a, out, rows, sched,
+                                                                  nsteps);
   }
-
-  const size_t row = blockIdx.x;
-  int f[12], acc[12];
-  load12(f, a, 12 * LANES, row, lane);
-#pragma unroll
-  for (int k = 0; k < 12; ++k) acc[k] = f[k];
-  for (int i = 0; i < nlevels; ++i) {
-    cyc_square<1>(acc, c, s, cb);
-    if (flags[i]) fq12_mul<1>(acc, f, c, s, mb);
-  }
-  store12(acc, out, row, lane);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int cyc_exp_cond_launch(const int* a, int* out, int rows, const int* flags,
-                                   int nlevels, void* stream) {
-  if (rows > 0) {
-    cyc_exp_cond_kernel<<<rows, LANES, 0, static_cast<cudaStream_t>(stream)>>>(
-        a, out, flags, nlevels);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int cyc_exp_launch(const int* a, int* out, int rows, const int* segs, int nseg,
                               void* stream) {
-  if (rows > 0) {
-    cyc_exp_kernel<<<(rows + TILE - 1) / TILE, THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(a, out, rows, segs, nseg);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(a, out, rows, segs, nseg, stream);
+}
+
+// flags holds one multiply flag per level.
+extern "C" int cyc_exp_cond_launch(const int* a, int* out, int rows, const int* flags,
+                                   int nlevels, void* stream) {
+  return launch<true>(a, out, rows, flags, nlevels, stream);
 }

@@ -13,40 +13,67 @@
 // a product tree across those rows, down to a floor of 128 rows, and raises
 // the root to p - 2; under the floor it raises every norm itself. Blocks
 // here share nothing and a row's stored representative depends on the tree's
-// shape, so this kernel takes the form without a tree: the six norms of a
-// packed row go through one Fermat chain together, a 6-row REDC per step,
-// with the bits of p - 2 read from device memory. Zero maps to zero.
+// shape, so this kernel takes the form without a tree: each norm goes
+// through its own Fermat chain, acc^2 and then acc * norm where the bit of
+// p - 2 (read from device memory, MSB first after the leading one) is set,
+// 608 REDCs. Zero maps to zero; the Karabina 1/4 is folded in after.
 //
-// What bounds it on an H100: latency, then integer issue. The Fermat chain is
-// about 570 dependent REDC steps where the chain of squarings is 63 and the
-// rest about 30, each step four block-wide synchronisations; the data moved
-// is one 12 x 128 int32 row in and out.
+// The design: every REDC runs on the tensor-core tile of rns_redc_tc.cuh. A
+// block holds TILE packed rows, one thread per lane and row, through the
+// whole exponentiation: the compressed state (8 residues) in registers for
+// the 63 squarings; the six snapshots and the six inverses in a scratch
+// buffer in device memory that the wrapper allocates (54 x 128 int32 per
+// packed row, rows padded to whole tiles; 28 MB at 2048 pairings, inside
+// the 50 MB L2), each thread reading back only what it wrote; the Fermat
+// chains of a slot's six norms as one 6-row REDC per step, whose bits are
+// the same for the whole block, so every thread takes every barrier. The
+// zero tests reduce over a slot's two warps through one shared word per
+// warp. Rows past the end (in the last tile) compute on zeros and store
+// nothing. At the 64 registers of four blocks per SM the decompression and
+// the products spill 84 bytes a thread; they take under 0.2 ms.
 //
-// State: one block per packed row, one thread per lane. Every value but a
-// REDC's cross-lane sums is private to its lane. The six snapshots (48
-// residues a thread) do not fit in registers beside the working set, so they
-// lie in shared memory, each thread reading only what it wrote; the running
-// product of the tree is parked in the rows of the snapshots already
-// consumed.
+// What bounds it on an H100: the Fermat chains, 608 steps of a 6-row REDC
+// (lane arithmetic, two tensor-core extensions, four block barriers)
+// against 63 8-row ones for the chain and about 40 REDC rows of
+// decompression and products. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (kernel_probe.py, 1024 packed rows): 3.10 ms, of which the inversion
+// 2.46, the chain 0.46; 1.56 ms for 4 rows alone, so about half of the
+// time is the chains' latency and half the SMs' throughput on their lane
+// arithmetic. chip_smoke.py reads 3.24-3.33 ms (one launch between two
+// events), against 9.11-9.15 ms for the one-row blocks of rns_common.cuh
+// that it had before, timed alongside it, and a work bound of
+// 0.019 ms. The warp design of pow_static.cu for the chains measured no
+// faster (3.08-3.50 ms; PERF.md).
 
-#include "rns_tower.cuh"
+#include "rns_tile.cuh"
 
 namespace {
 
 using namespace rns;
 
 constexpr int NSNAP = 6;
+// packed rows per block, four blocks per SM: 3.5-5.6 % faster than the other
+// tensor-core kernels' RNS_TC_ROWS = 4 at two blocks per SM
+// (kernel_probe.py; PERF.md)
+constexpr int TILE = 2;
+constexpr int THREADS = TILE * LANES;
+constexpr int WARPS = THREADS / 32;
+// residues per lane and packed row in the scratch buffer: the six
+// snapshots' 8 components, then the six norms' inverses over 4
+constexpr int INV = NSNAP * 8;
+constexpr int SCRATCH = INV + NSNAP;
 
 // Which of K stored values (<= 4p, canonical residues) are 0 mod p, per
 // packed slot (fp.is_zero): a value is zero iff its slot equals the residues
 // of k*p on every channel lane for one k in 0..4. Bit k of the result is set
 // if x[k] is zero in the calling thread's slot. Each thread forms a 5-bit
 // match mask per value, a warp reduces by AND, and the two warps of a slot
-// meet in shared memory. Every thread of the block must call it.
-template <int K, int KS>
-__device__ __forceinline__ unsigned zero_mask(const int (&x)[K], int l, Smem<KS>& s) {
+// meet in `words`, one per warp of the block. Every thread of the block
+// must call it.
+template <int K>
+__device__ __forceinline__ unsigned zero_mask(const int (&x)[K], int l, int (&words)[WARPS]) {
   static_assert(5 * K <= 32, "one 32-bit mask holds the match bits");
-  static_assert(SUB == 64 && KS * PACK >= LANES / 32, "two warps per slot, a word each");
+  static_assert(SUB == 64, "two warps per slot");
   unsigned m = 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -57,24 +84,44 @@ __device__ __forceinline__ unsigned zero_mask(const int (&x)[K], int l, Smem<KS>
     m |= b << (5 * k);
   }
   m = __reduce_and_sync(0xffffffffu, m);
-  __syncthreads();  // the last reduction's reads of s.fix are done
-  if ((threadIdx.x & 31) == 0) s.fix[threadIdx.x >> 5] = static_cast<int>(m);
+  __syncthreads();  // the last call's reads of words are done
+  if ((threadIdx.x & 31) == 0) words[threadIdx.x >> 5] = static_cast<int>(m);
   __syncthreads();
-  // what follows rewrites s.fix only after a barrier of its own
   const int w = (threadIdx.x / SUB) * 2;
-  m = static_cast<unsigned>(s.fix[w] & s.fix[w + 1]);
+  m = static_cast<unsigned>(words[w] & words[w + 1]);
   unsigned z = 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) z |= (((m >> (5 * k)) & 31u) != 0 ? 1u : 0u) << k;
   return z;
 }
 
-// x[k] for a k known only at run time, x staying in registers.
-__device__ __forceinline__ int pick(const int (&x)[NSNAP], int k) {
-  int v = x[0];
+// The bias rows of the chain, the decompression and the products, and the
+// rows of 1 and 4p, in shared memory: read from device memory (const), the
+// compiler hoists them out of the loops and holds them in registers.
+struct Rows {
+  int kara[8][SUB];
+  int knum[4][SUB], kdinv[2][SUB], kg1[2][SUB], kg0[2][SUB];
+  int mul[12][SUB];
+  int one[SUB], pmul4[SUB];
+};
+
+__device__ __forceinline__ void load_rows(Rows& w) {
+  for (int i = threadIdx.x; i < SUB; i += THREADS) {
 #pragma unroll
-  for (int i = 1; i < NSNAP; ++i) v = (i == k) ? x[i] : v;
-  return v;
+    for (int k = 0; k < 8; ++k) w.kara[k][i] = RNS_KARA_BIAS[k][i];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w.knum[k][i] = RNS_KNUM_BIAS[k][i];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      w.kdinv[k][i] = RNS_KDINV_BIAS[k][i];
+      w.kg1[k][i] = RNS_KG1_BIAS[k][i];
+      w.kg0[k][i] = RNS_KG0_BIAS[k][i];
+    }
+#pragma unroll
+    for (int k = 0; k < 12; ++k) w.mul[k][i] = RNS_MUL_BIAS[k][i];
+    w.one[i] = RNS_ONE[i];
+    w.pmul4[i] = RNS_PMUL4[i];
+  }
 }
 
 // One snapshot (the thread's 8 residues at g[i * LANES]) to the full element
@@ -84,9 +131,9 @@ __device__ __forceinline__ int pick(const int (&x)[NSNAP], int k) {
 //        (xi g5^2 + 3 g4^2 - 2 g3, g2);
 //   g0 = xi (2 g1^2 + g2 g5 - 3 g3 g4) + 1;
 //   f = ((g0, g4, g3), (g2, g1, g5)).
-template <int KS>
 __device__ __forceinline__ void decompress(const int* g, int nq, bool z, int (&f)[12],
-                                           const Lane& c, Smem<KS>& s, int l) {
+                                           const Lane& c, TcSmem<TILE>& s, const Rows& w,
+                                           int l) {
   const F2 g2{g[0], g[LANES]}, g3{g[2 * LANES], g[3 * LANES]};
   const F2 g4{g[4 * LANES], g[5 * LANES]}, g5{g[6 * LANES], g[7 * LANES]};
 
@@ -94,19 +141,19 @@ __device__ __forceinline__ void decompress(const int* g, int nq, bool z, int (&f
                                 f2_scale(f2_mul(g4, g4, c), 3, c), c),
                          f2_scale(f2_lift(g3, c), 2, c), c);
   const F2 num2 = f2_scale(f2_mul(g4, g5, c), 8, c);
-  int n4[4] = {add_m(num1.c0, RNS_KNUM_BIAS[0][l], c), add_m(num1.c1, RNS_KNUM_BIAS[1][l], c),
-               add_m(num2.c0, RNS_KNUM_BIAS[2][l], c), add_m(num2.c1, RNS_KNUM_BIAS[3][l], c)};
+  int n4[4] = {add_m(num1.c0, w.knum[0][l], c), add_m(num1.c1, w.knum[1][l], c),
+               add_m(num2.c0, w.knum[2][l], c), add_m(num2.c1, w.knum[3][l], c)};
   redc<4>(n4, c, s);
   const F2 num = z ? F2{n4[2], n4[3]} : F2{n4[0], n4[1]};
   const F2 den = z ? g3 : g2;
 
   // conj(den) * nq, the negation as 4p - x
-  int d[2] = {add_m(mul_m(den.c0, nq, c), RNS_KDINV_BIAS[0][l], c),
-              add_m(mul_m(sub_m(RNS_PMUL4[l], den.c1, c), nq, c), RNS_KDINV_BIAS[1][l], c)};
+  int d[2] = {add_m(mul_m(den.c0, nq, c), w.kdinv[0][l], c),
+              add_m(mul_m(sub_m(w.pmul4[l], den.c1, c), nq, c), w.kdinv[1][l], c)};
   redc<2>(d, c, s);
 
   const F2 g1w = f2_mul(num, F2{d[0], d[1]}, c);
-  int g1[2] = {add_m(g1w.c0, RNS_KG1_BIAS[0][l], c), add_m(g1w.c1, RNS_KG1_BIAS[1][l], c)};
+  int g1[2] = {add_m(g1w.c0, w.kg1[0][l], c), add_m(g1w.c1, w.kg1[1][l], c)};
   redc<2>(g1, c, s);
 
   const F2 g1f{g1[0], g1[1]};
@@ -114,9 +161,9 @@ __device__ __forceinline__ void decompress(const int* g, int nq, bool z, int (&f
                           f2_scale(f2_mul(g3, g4, c), 3, c), c);
   const F2 xin = f2_nonres(inner, c);
   // + 1, lifted into the product domain
-  const int one_p = mul_m(RNS_ONE[l], c.ma_modp, c);
-  int g0[2] = {add_m(add_m(xin.c0, one_p, c), RNS_KG0_BIAS[0][l], c),
-               add_m(xin.c1, RNS_KG0_BIAS[1][l], c)};
+  const int one_p = mul_m(w.one[l], c.ma_modp, c);
+  int g0[2] = {add_m(add_m(xin.c0, one_p, c), w.kg0[0][l], c),
+               add_m(xin.c1, w.kg0[1][l], c)};
   redc<2>(g0, c, s);
 
   f[0] = g0[0]; f[1] = g0[1];
@@ -127,35 +174,54 @@ __device__ __forceinline__ void decompress(const int* g, int nq, bool z, int (&f
   f[10] = g5.c0; f[11] = g5.c1;
 }
 
-// One block per packed row; a and out are (rows, 12, 128) int32; segs holds
-// the NSNAP chain lengths, bits the nbits bits of p - 2 after its leading one,
-// MSB first.
-__global__ void __launch_bounds__(LANES)
-    kara_full_kernel(const int* __restrict__ a, int* __restrict__ out,
-                     const int* __restrict__ segs, const int* __restrict__ bits, int nbits) {
-  __shared__ Smem<12> s;
-  __shared__ int snaps[NSNAP * 8 * LANES];
-  load_tables(s);
-  __syncthreads();
+// acc[k] <- base[k]^(p - 2), the six norms of the thread's slot: one Fermat
+// chain per norm, a 6-row REDC of the tile per step.
+__device__ __forceinline__ void fermat(int (&acc)[NSNAP], const int (&base)[NSNAP],
+                                       const Lane& c, TcSmem<TILE>& s,
+                                       const int* __restrict__ bits, int nbits) {
+#pragma unroll
+  for (int k = 0; k < NSNAP; ++k) acc[k] = base[k];
+  for (int i = 0; i < nbits; ++i) {
+#pragma unroll
+    for (int k = 0; k < NSNAP; ++k) acc[k] = mul_m(acc[k], acc[k], c);
+    redc<NSNAP>(acc, c, s);
+    if (bits[i]) {
+#pragma unroll
+      for (int k = 0; k < NSNAP; ++k) acc[k] = mul_m(acc[k], base[k], c);
+      redc<NSNAP>(acc, c, s);
+    }
+  }
+}
 
-  const int lane = threadIdx.x;
-  const int l = lane % SUB;
-  const Lane c = load_lane(l);
-  const size_t row = blockIdx.x;
-  int* const my = snaps + lane;  // residue i of snapshot k at my[(k * 8 + i) * LANES]
+// One block per TILE packed rows (the last tile masked); a and out are
+// (rows, 12, 128) int32, scratch (whole tiles, SCRATCH, 128) int32; segs
+// holds the NSNAP chain lengths, bits the nbits bits of p - 2 after its
+// leading one, MSB first.
+__global__ void __launch_bounds__(THREADS, 4)
+    kara_full_kernel(const int* __restrict__ a, int* __restrict__ out,
+                     int* __restrict__ scratch, int rows, const int* __restrict__ segs,
+                     const int* __restrict__ bits, int nbits) {
+  __shared__ TcSmem<TILE> s;
+  __shared__ Rows w;
+  __shared__ int words[WARPS];
+  load_rows(w);
+  const Block b = enter(s);
+  const Lane& c = b.c;
+  const int l = b.l;
+  const Row r = row_of<TILE>(blockIdx.x, rows);
+  // residue i of snapshot k at my[(k * 8 + i) * LANES], the inverse of its
+  // norm over 4 at my[(INV + k) * LANES]
+  int* const my = scratch + r.row * SCRATCH * LANES + b.lane;
 
   // the chain
   {
     const int idx[8] = RNS_KARA_IDX;
-    int g[8], b[8];
+    int g[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      g[i] = a[(row * 12 + idx[i]) * LANES + lane];
-      b[i] = RNS_KARA_BIAS[i][l];
-    }
+    for (int i = 0; i < 8; ++i) g[i] = r.live ? a[(r.row * 12 + idx[i]) * LANES + b.lane] : 0;
     for (int k = 0; k < NSNAP; ++k) {
       const int n = segs[k];
-      for (int i = 0; i < n; ++i) kara_square<1>(g, c, s, b);
+      for (int i = 0; i < n; ++i) kara_square<SUB>(g, c, s, &w.kara[0][l]);
 #pragma unroll
       for (int i = 0; i < 8; ++i) my[(k * 8 + i) * LANES] = g[i];
     }
@@ -170,7 +236,7 @@ __global__ void __launch_bounds__(LANES)
       c0[k] = my[(k * 8) * LANES];
       c1[k] = my[(k * 8 + 1) * LANES];
     }
-    zg2 = zero_mask(c0, l, s) & zero_mask(c1, l, s);
+    zg2 = zero_mask(c0, l, words) & zero_mask(c1, l, words);
   }
 
   // the six denominators' norms c0^2 + c1^2
@@ -184,37 +250,28 @@ __global__ void __launch_bounds__(LANES)
   redc<NSNAP>(base, c, s);
 
   // their inverses norm^(p - 2), zero to zero, then over 4
-  const unsigned zn = zero_mask(base, l, s);
-  const int one = RNS_ONE[l];
+  const unsigned zn = zero_mask(base, l, words);
 #pragma unroll
   for (int k = 0; k < NSNAP; ++k) {
-    if ((zn >> k) & 1u) base[k] = one;
-    acc[k] = base[k];
+    if ((zn >> k) & 1u) base[k] = w.one[l];
   }
-  for (int i = 0; i < nbits; ++i) {
-#pragma unroll
-    for (int k = 0; k < NSNAP; ++k) acc[k] = mul_m(acc[k], acc[k], c);
-    redc<NSNAP>(acc, c, s);
-    if (bits[i]) {
-#pragma unroll
-      for (int k = 0; k < NSNAP; ++k) acc[k] = mul_m(acc[k], base[k], c);
-      redc<NSNAP>(acc, c, s);
-    }
-  }
+  fermat(acc, base, c, s, bits, nbits);
   const int quarter = RNS_QUARTER[l];
 #pragma unroll
   for (int k = 0; k < NSNAP; ++k) acc[k] = ((zn >> k) & 1u) ? 0 : mul_m(acc[k], quarter, c);
   redc<NSNAP>(acc, c, s);
+#pragma unroll
+  for (int k = 0; k < NSNAP; ++k) my[(INV + k) * LANES] = acc[k];
 
   // decompress pair by pair and multiply: p_j = s_2j s_2j+1, then (p0 p1) p2
-  const int* mb = bias_at(RNS_MUL_BIAS, l);
+  const int* mb = &w.mul[0][l];
   int fa[12], fb[12];
 #pragma unroll 1
   for (int j = 0; j < NSNAP / 2; ++j) {
-    decompress(my + (2 * j) * 8 * LANES, pick(acc, 2 * j), (zg2 >> (2 * j)) & 1u, fa, c, s,
-               l);
-    decompress(my + (2 * j + 1) * 8 * LANES, pick(acc, 2 * j + 1), (zg2 >> (2 * j + 1)) & 1u,
-               fb, c, s, l);
+    decompress(my + (2 * j) * 8 * LANES, my[(INV + 2 * j) * LANES], (zg2 >> (2 * j)) & 1u,
+               fa, c, s, w, l);
+    decompress(my + (2 * j + 1) * 8 * LANES, my[(INV + 2 * j + 1) * LANES],
+               (zg2 >> (2 * j + 1)) & 1u, fb, c, s, w, l);
     fq12_mul<SUB>(fa, fb, c, s, mb);
     if (j > 0) {
 #pragma unroll
@@ -229,17 +286,19 @@ __global__ void __launch_bounds__(LANES)
 #pragma unroll
     for (int i = 0; i < 12; ++i) my[i * LANES] = fa[i];
   }
-  store12(fa, out, row, lane);
+  if (r.live) store12(fa, out, r.row, b.lane);
 }
 
 }  // namespace
 
-extern "C" int kara_full_launch(const int* a, int* out, int rows, const int* segs, int nseg,
-                                const int* bits, int nbits, void* stream) {
+extern "C" int kara_full_launch(const int* a, int* out, int* scratch, int rows,
+                                const int* segs, int nseg, const int* bits, int nbits,
+                                void* stream) {
   if (nseg != NSNAP) return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0) {
-    kara_full_kernel<<<rows, LANES, 0, static_cast<cudaStream_t>(stream)>>>(a, out, segs,
-                                                                            bits, nbits);
+    kara_full_kernel<<<(rows + TILE - 1) / TILE, THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a, out, scratch, rows, segs,
+                                                            bits, nbits);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,10 @@
 //
 // A bias argument points at the thread's entry of the first of 12 rows that
 // lie BS ints apart: a register array (BS = 1) or a table of rns_tables.h at
-// the thread's lane (BS = SUB). The Fq12 formulas take the reduction's shared
-// memory as a type S and end in the redc that S selects: Smem<12> for the
+// the thread's lane (BS = SUB). The formulas take the reduction's shared
+// memory as a type S and end in the redc that S selects: Smem<KS> for the
 // one-row blocks of rns_common.cuh, TcSmem<R> for the tensor-core tiles of
-// rns_redc_tc.cuh (cyc_exp, tower_ops, miller).
+// rns_redc_tc.cuh (cyc_exp, kara_full, tower_ops, miller).
 #pragma once
 
 #include "rns_common.cuh"
@@ -66,8 +66,8 @@ __device__ __forceinline__ void cyc_square(int (&a)[12], const Lane& c, S& s,
 // xi B45 (and B23, t23 alike), the outputs are h2 = 2 g2 + 6 xi B45, h3 =
 // 3 t45 - 2 g3, h4 = 3 t23 - 2 g4, h5 = 2 g5 + 6 B23, the bare g lifted into
 // the product domain, and one 8-row REDC.
-template <int BS, int KS>
-__device__ __forceinline__ void kara_square(int (&g)[8], const Lane& c, Smem<KS>& s,
+template <int BS, class S>
+__device__ __forceinline__ void kara_square(int (&g)[8], const Lane& c, S& s,
                                             const int* bias) {
   const F2 g2{g[0], g[1]}, g3{g[2], g[3]}, g4{g[4], g[5]}, g5{g[6], g[7]};
   const F2 b45 = f2_mul(g4, g5, c);

@@ -58,8 +58,8 @@ _PTR, _INT, _STRIDE = cuda_build.PTR, cuda_build.INT, cuda_build.STRIDE
 #: operand with a row stride is (_PTR, _STRIDE); every entry ends in the
 #: output pointer, the row count and the stream, but for the exponentiation
 #: and pow kernels, which take (a, out, rows, int array, its length, stream;
-#: kara_full two arrays), and the square runs, which take (a, out, rows, n,
-#: stream).
+#: kara_full a scratch buffer after out and two arrays), and the square
+#: runs, which take (a, out, rows, n, stream).
 _KERNELS = {
     "cyc_exp": ("cyc_exp.cu", "cyc_exp_launch",
                 [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
@@ -72,7 +72,7 @@ _KERNELS = {
     "kara_exp": ("kara_exp.cu", "kara_exp_launch",
                  [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
     "kara_full": ("kara_full.cu", "kara_full_launch",
-                  [_PTR, _PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR]),
+                  [_PTR, _PTR, _PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR]),
     "pow_static": ("pow_static.cu", "pow_static_launch",
                    [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
     "miller_run": ("miller.cu", "miller_run_launch",
@@ -323,10 +323,14 @@ def cyc_exp(a: torch.Tensor, segments) -> torch.Tensor:
     segments = tuple((int(n), int(bool(m))) for n, m in segments)
     if a.device.type == "cpu":
         return cyc_exp_plain(a, segments)
+    return _cyc_exp_kernel(a, segments)
+
+
+def _cyc_exp_kernel(a: torch.Tensor, segments: tuple) -> torch.Tensor:
+    """cyc_exp's launch, tiles of kernel_tables.TC_ROWS packed rows."""
     _check(a, (12, LANES))
     segs = _int_arg(("segs", segments), [v for s in segments for v in s], a.device)
-    rows = a.numel() // (12 * LANES)
-    return _launch("cyc_exp", a, rows, segs, len(segments))
+    return _launch("cyc_exp", a, a.numel() // (12 * LANES), segs, len(segments))
 
 
 def cyc_exp_cond(a: torch.Tensor, segments) -> torch.Tensor:
@@ -335,6 +339,11 @@ def cyc_exp_cond(a: torch.Tensor, segments) -> torch.Tensor:
     segments = tuple((int(n), int(bool(m))) for n, m in segments)
     if a.device.type == "cpu":
         return cyc_exp_cond_plain(a, segments)
+    return _cyc_exp_cond_kernel(a, segments)
+
+
+def _cyc_exp_cond_kernel(a: torch.Tensor, segments: tuple) -> torch.Tensor:
+    """cyc_exp_cond's launch: cyc_exp's kernel walking one flag per level."""
     _check(a, (12, LANES))
     flags = _segments_to_flags(segments)
     arg = _int_arg(("levels", flags), flags or [0], a.device)
@@ -397,11 +406,28 @@ def kara_full(a: torch.Tensor, segments) -> torch.Tensor:
                          f"got {len(segments)}")
     if a.device.type == "cpu":
         return kara_full_plain(a, segments)
+    return _kara_full_kernel(a, segments)
+
+
+#: int32 per lane and packed row of kara_full's scratch buffer: the six
+#: snapshots' 8 components and the six inverses; packed rows per block
+#: (csrc/kara_full.cu SCRATCH, TILE)
+_KARA_FULL_SCRATCH = KARA_FULL_SNAPSHOTS * 8 + KARA_FULL_SNAPSHOTS
+_KARA_FULL_TILE = 2
+
+
+def _kara_full_kernel(a: torch.Tensor, segments: tuple) -> torch.Tensor:
+    """kara_full's launch, tiles of _KARA_FULL_TILE packed rows; its scratch
+    rows are padded to whole tiles."""
     _check(a, (12, LANES))
     out = torch.empty_like(a)
+    rows = a.numel() // (12 * LANES)
+    tile = _KARA_FULL_TILE
+    scratch = torch.empty((-(-rows // tile) * tile, _KARA_FULL_SCRATCH, LANES),
+                          dtype=torch.int32, device=a.device)
     segs = _int_arg(("chain", segments), segments, a.device)
     bits = fp.exponent_bits(fp.P - 2)
-    _call("kara_full", a.device, a.data_ptr(), out.data_ptr(), a.numel() // (12 * LANES),
+    _call("kara_full", a.device, a.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows,
           segs.data_ptr(), len(segments),
           _int_arg(("bits", fp.P - 2), bits, a.device).data_ptr(), len(bits))
     return out

@@ -426,6 +426,47 @@ def test_cyc_exp_cond_kernel_matches_plain(cuda):
     assert torch.equal(got, kernels.cyc_exp(a, _GS_SEGMENTS))
 
 
+def ragged_stack(rows: int, seed: int, device) -> torch.Tensor:
+    """rows + 1 packed cyclotomic rows: the kernels read the last `rows` of
+    them as a row view (contiguous, one row into the stack)."""
+    if rows < 8:
+        return torch.from_numpy(cyclotomic_rows(2 * rows + 2, seed)).to(device)
+    return device_rows(rows + 1, seed, device, cyclotomic=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", TC_ROWS)
+def test_cyc_exp_cond_kernel_at_ragged_rows(cuda, rows):
+    """The tile kernel's last tile masked, on a row view."""
+    a = ragged_stack(rows, 0xE8, cuda)[1:]
+    assert a.shape == (rows, 12, RC.LANES) and a.is_contiguous()
+    kernels.reset_launches()
+    got = kernels.cyc_exp_cond(a, _GS_SEGMENTS)
+    assert kernels.launches["cyc_exp_cond"] == 1 and sum(kernels.launches.values()) == 1
+    assert torch.equal(got, kernels.cyc_exp_cond_plain(a, _GS_SEGMENTS))
+    assert torch.equal(got, kernels.cyc_exp(a, _GS_SEGMENTS))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", TC_ROWS)
+def test_kara_full_kernel_at_ragged_rows(cuda, rows):
+    """The tile kernel's last tile masked, on a row view whose first row
+    holds the identity in one slot and (from 3 rows) whose second row is
+    the identity: the g2 == 0 branch with a zero norm."""
+    stack = ragged_stack(rows, 0xE9, cuda)
+    one = tower.one((), cuda)
+    stack[1, :, RC.SUB:] = one[:, RC.SUB:]
+    if rows > 1:
+        stack[2] = one
+    a = stack[1:]
+    kernels.reset_launches()
+    got = kernels.kara_full(a, _KARA_SEGMENTS)
+    assert kernels.launches["kara_full"] == 1 and sum(kernels.launches.values()) == 1
+    assert torch.equal(got, kernels.kara_full_plain(a, _KARA_SEGMENTS))
+    assert tower.is_equal(got, kernels.cyc_exp(a, _GS_SEGMENTS)).all()
+    assert tower.is_one(got)[0, 1].all()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [0, 1, 5])
 def test_square_run_kernels_match_plain(cuda, n):

@@ -5,18 +5,20 @@ card run the kernels' own code.
 against a small stand-in for the CUDA runtime and the generated headers of
 both tiers (rns_tables.h, limb_tables.h): a launch runs its blocks one after
 another, each as one std::thread per CUDA thread (1-, 2- or 3-D blocks),
-with a std::barrier for __syncthreads, one per warp of 32 threads for
-__syncwarp and the shuffles (__shfl_sync, __shfl_up_sync, __shfl_down_sync,
-__shfl_xor_sync, through a per-warp exchange buffer), __shared__ as static
-storage and `extern __shared__` as the launch's dynamic shared memory
+with a barrier for __syncthreads (a counter whose waiters yield their core
+while they spin: a block has more threads than the host has cores), one
+per warp of 32 threads for __syncwarp, the shuffles (__shfl_sync,
+__shfl_up_sync, __shfl_down_sync, __shfl_xor_sync) and __reduce_and_sync
+(through a per-warp exchange buffer), __shared__ as static storage and
+`extern __shared__` as the launch's dynamic shared memory
 (cudaFuncSetAttribute is a no-op), atomicAdd on int as the host's atomic
 add, and `__grid_constant__` parameters passed by value. The build defines
 RNS_HOST_EMU, under which rns_redc_tc.cuh takes `extend` from this module
 (the tensor-core products as the same integer dot products of the same u8
 planes, written out: their mma.sync fragment layout is the one part left to
 the card) and records every REDC a thread runs, its K input residues and
-its K outputs, for `redc_log`. What the emulator cannot show is left to the card: timing,
-the compiler's limits, and races that its barriers hide.
+its K outputs, for `redc_log`. What the emulator cannot show is left to
+the card: timing, the compiler's limits, and races that its barriers hide.
 
 `bind(monkeypatch, kernels, lib)` points ops/rns/kernels.py's launch
 helpers at the built library (pytest's monkeypatch undoes it), so that a
@@ -41,7 +43,7 @@ CSRC = Path(__file__).resolve().parents[1] / "plonky2_bls12_381_pairing_torch" /
 _RUNTIME = r"""
 #pragma once
 #include <algorithm>
-#include <barrier>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -58,7 +60,25 @@ struct alignas(16) int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 template <class T> inline T min(T a, T b) { return b < a ? b : a; }
 template <class T> inline T max(T a, T b) { return a < b ? b : a; }
-inline std::barrier<>* g_barrier = nullptr;
+// a barrier of n threads (the block's __syncthreads, a warp's): a counter
+// whose waiters yield their core while they spin (a block has more threads
+// than the host has cores)
+struct EmuBarrier {
+  const int n;
+  std::atomic<int> count{0};
+  std::atomic<unsigned> phase{0};
+  explicit EmuBarrier(int n_) : n(n_) {}
+  void arrive_and_wait() {
+    const unsigned p = phase.load(std::memory_order_acquire);
+    if (count.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
+      count.store(0, std::memory_order_relaxed);
+      phase.store(p + 1, std::memory_order_release);
+      return;
+    }
+    while (phase.load(std::memory_order_acquire) == p) std::this_thread::yield();
+  }
+};
+inline EmuBarrier* g_barrier = nullptr;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 
@@ -66,9 +86,10 @@ inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_R
 // with its own barrier and exchange buffer for the shuffles
 constexpr int kWarp = 32;
 struct EmuWarp {
-  std::barrier<> bar;
+  EmuBarrier bar;
+  int n;
   long long slot[kWarp];
-  explicit EmuWarp(int n) : bar(n) {}
+  explicit EmuWarp(int n_) : bar(n_), n(n_) {}
 };
 inline thread_local EmuWarp* t_warp = nullptr;
 inline thread_local int t_lane = 0;
@@ -96,6 +117,14 @@ template <class T> T __shfl_down_sync(unsigned, T v, unsigned d, int width = kWa
 }
 template <class T> T __shfl_xor_sync(unsigned, T v, int m, int width = kWarp) {
   return emu_shfl(v, t_lane ^ m, false);
+}
+inline unsigned __reduce_and_sync(unsigned, unsigned v) {
+  t_warp->slot[t_lane] = v;
+  t_warp->bar.arrive_and_wait();
+  unsigned out = ~0u;
+  for (int i = 0; i < t_warp->n; ++i) out &= static_cast<unsigned>(t_warp->slot[i]);
+  t_warp->bar.arrive_and_wait();
+  return out;
 }
 
 // extern __shared__ arrays: one buffer of the launch's dynamic size, reused
@@ -148,7 +177,7 @@ template <class Kernel, class... A> void emu_launch(dim3 grid, dim3 block, size_
   g_logs.assign(static_cast<size_t>(blocks) * threads, {});
   g_dyn_smem.assign(smem, 0);
   for (int b = 0; b < blocks; ++b) {
-    std::barrier<> bar(threads);
+    EmuBarrier bar(threads);
     g_barrier = &bar;
     std::vector<std::unique_ptr<EmuWarp>> warps;
     for (int w = 0; w * kWarp < threads; ++w) {
