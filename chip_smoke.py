@@ -17,8 +17,11 @@ Phases (any failure exits non-zero; nothing is caught):
      Miller kernels on the run's own points, miller_run with one and two
      terms;
      the warp kernels also at 1, 3, 5 and 127 rows, the limb tower kernel,
-     conv and mont_reduce on row views too, conv with stride-0 operands;
-     pow_static's time per dependent step against its latency model);
+     conv, mont_reduce, mont_mul and mont_pow on row views too, conv and
+     mont_mul with stride-0 operands;
+     pow_static's time per dependent step against its latency model, and
+     mont_pow's for one row and for 2048, beside the 608 mont_mul launches
+     of the chain it replaces);
      time both,
      count the kernel's bound from the inputs (the REDC base extensions at
      the tensor cores' u8 rate, and at the int32 rate beside it), and time
@@ -44,7 +47,7 @@ Phases (any failure exits non-zero; nothing is caught):
          of the six forms of its powers, each equal in value to the default
          form on all 2048 (the Granger-Scott forms row for row);
        the limb tier's `pairing` (models/pairing.py) on the same points under
-         the strategies "auto" (conv, mont_reduce and mont_mul kernels under
+         the strategies "auto" (conv, mont_reduce and mont_pow kernels under
          the plain tower composition, one conv launch per group of
          independent products) and "fused" (the four limb tower kernels as
          well): all 2048 outputs of each against the same oracle values, the
@@ -98,6 +101,8 @@ TPU_KERNELS = "plonky2_bls12_381_pairing_tpu/ops/rns/pallas.py"
 TPU_PAIRING_RNS = "plonky2_bls12_381_pairing_tpu/models/pairing_rns.py"
 TPU_LIMB_MONT = "plonky2_bls12_381_pairing_tpu/ops/pallas/mont.py"
 TPU_LIMB_TOWER = "plonky2_bls12_381_pairing_tpu/ops/pallas/tower.py"
+#: pow_static's lax.scan over the mont_mul kernel
+TPU_LIMB_FP = "plonky2_bls12_381_pairing_tpu/ops/fp.py"
 PORT_CSRC = "plonky2_bls12_381_pairing_torch/csrc"
 #: pairings per call and per term: the JAX package's batch per chip
 BATCH = 2048
@@ -192,8 +197,8 @@ def random_limb_rows(rng: np.random.Generator, *shape: int) -> np.ndarray:
 
 
 def pow_mont_muls(exponent: int) -> int:
-    """Products of fp.pow_static: a squaring per bit after the leading one,
-    a multiply per set bit after it."""
+    """Products of fp.pow_static (mont_pow's dependent steps): a squaring per
+    bit after the leading one, a multiply per set bit after it."""
     return exponent.bit_length() - 1 + bin(exponent).count("1") - 1
 
 
@@ -469,8 +474,9 @@ TC_SOURCES = ("cyc_exp.cu", "kara_full.cu", "tower_ops.cu", "miller.cu")
 #: registers of four 256-thread blocks per SM (PERF.md): reported, not held
 #: to zero
 SPILL_REPORTED = ("kara_full.cu",)
-#: the sources of the warp kernels (mont.cu also holds the block-wide
-#: mont_mul): their tables and scratch live in registers, no spills
+#: the sources of the warp kernels (mont.cu: conv, mont_reduce, mont_mul and
+#: the mont_pow chain): their tables and scratch live in registers and
+#: shared memory, no spills
 WARP_SOURCES = ("pow_static.cu", "limb_tower.cu", "mont.cu")
 #: row counts of the warp kernels' checks besides the paths' shapes: odd
 #: counts that end the grid on a partial block
@@ -481,6 +487,19 @@ RUN_LENGTHS = {"cyc_square_run": tuple(n for n, _ in _GS_SEGMENTS),
                "kara_square_run": tuple(_KARA_SEGMENTS)}
 
 
+def kernel_name(mangled: str) -> tuple[str, int]:
+    """The kernel's name in a mangled symbol (the length-prefixed identifier
+    that ends in _kernel; a namespace's hash before it may end in digits)
+    and where it ends."""
+    for i in range(len(mangled)):
+        for k in (1, 2, 3):
+            if mangled[i:i + k].isdigit():
+                end = i + k + int(mangled[i:i + k])
+                if mangled[i + k:end].endswith("_kernel"):
+                    return mangled[i + k:end], end
+    raise ValueError(f"no kernel name in {mangled}")
+
+
 def ptxas_use(log: str) -> dict[str, str]:
     """ptxas's report per kernel of one source's build log (nvcc -Xptxas -v):
     its registers, shared memory and spills."""
@@ -488,9 +507,12 @@ def ptxas_use(log: str) -> dict[str, str]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = re.search(r"\d+([A-Za-z]\w*?_kernel)", mangled).group(1)
-            for flag, arg in (("ILb1E", "<true>"), ("ILb0E", "<false>")):
-                name += arg if flag in mangled else ""
+            name, end = kernel_name(mangled)
+            # the template's literal arguments: bool, int or enum values
+            args = re.findall(r"L(NS_\d+[A-Za-z]\w*?E|[a-z])(-?\d+)E", mangled[end:])
+            name += ("<" + ", ".join(("true" if v == "1" else "false") if t == "b" else v
+                                     for t, v in args) + ">" if args else "")
+            name = mangled if name in out else name
             out[name] = ""
         elif name is not None and ("spill" in line or "registers" in line):
             use = line.split(":", 1)[-1] if "ptxas" in line else line
@@ -554,13 +576,15 @@ EXPECTED_LAUNCHES = {
 }
 #: Kernels that no path launches: the Miller loops' ell and square, which
 #: the Miller kernels now do inside (tower.mul_by_014 / square /
-#: mul_by_014_square keep them for their other callers); phase 2 holds them
-#: to their plain versions all the same.
-OFF_PATH = ("fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square")
+#: mul_by_014_square keep them for their other callers), and the limb
+#: mont_mul, whose one chain on the paths (fp.inv) is now the mont_pow
+#: kernel (fp.to_mont, from_mont and G1Affine.is_on_curve keep it); phase 2
+#: holds them to their plain versions all the same.
+OFF_PATH = ("fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square", "mont_mul")
 # The limb tier. Under "auto" every product is composed of conv and
 # mont_reduce launches: one conv launch per group of independent products
 # (fp.form), one mont_reduce launch per stacked reduction; the Fermat
-# inverse of the final exponentiation is a chain of fused mont_mul launches;
+# inverse of the final exponentiation is one mont_pow launch;
 # the limb tower kernels stay unused. Under "fused" the Miller loop's 68
 # ells and 62 squares and the final exponentiation's products and
 # cyclotomic squarings (two products of the easy part, then the hard part's
@@ -592,7 +616,7 @@ def limb_launches(strategy: str, terms: int) -> dict:
              "cyclotomic_square": _HP_OPS.count(lmp._OP_CYCSQ),
              "frobenius_map": 2 + _HP_OPS.count(lmp._OP_FROB)}
     tower = ("mul", "square", "mul_by_014", "cyclotomic_square")
-    out = {"conv": 0, "mont_reduce": 0, "mont_mul": pow_mont_muls(rm.P - 2)}
+    out = {"conv": 0, "mont_reduce": 0, "mont_pow": steps["inv"]}
     for step, n in steps.items():
         if strategy == "fused" and step in tower:
             out[f"limb_fq12_{step}"] = n
@@ -731,7 +755,7 @@ def main() -> int:
             "cyc_exp_cond": ("cyc_exp.cu", 674, kernels.cyc_exp_cond,
                              kernels.cyc_exp_cond_plain, (cyc_in, _GS_SEGMENTS),
                              cyc_bound),
-            "cyc_square_run": ("square_run.cu", 339, kernels.cyc_square_run,
+            "cyc_square_run": ("cyc_exp.cu", 339, kernels.cyc_square_run,
                                kernels.cyc_square_run_plain, (cyc_in, n_run),
                                bound_ms(2 * numel * 4, run_ops["cyc_square_run"](n_run))),
             "kara_square_run": ("square_run.cu", 346, kernels.kara_square_run,
@@ -749,7 +773,7 @@ def main() -> int:
         for name, (source, line, wrapper, plain, args, bound) in exp_cases.items():
             got = wrapper(*args)
             err = check(name, got, plain(*args), f"{tuple(args[0].shape)}, {args[1]}:")
-            if name in ("cyc_exp_cond", "kara_full"):
+            if name in ("cyc_exp_cond", "cyc_square_run", "kara_full"):
                 for n in ragged_rows(rows):
                     cut = (args[0][:n], args[1])
                     err = max(err, check(name, wrapper(*cut), plain(*cut), f"rows {n}:"))
@@ -1094,6 +1118,71 @@ def main() -> int:
         same = torch.equal(got, lmont.mont_reduce(wide.cols, wide.col_lo, wide.col_hi))
         print(f"[mont_mul] rows identical to mont_reduce(conv): {same}")
         assert same and wide.col_hi == lmont.MUL_COL_HI
+        # at odd row counts: the row views (stride 12 * 48), the first
+        # operand's first row broadcast (stride 0), and dense rows
+        err = kern["mont_mul"]["max_abs_err"]
+        for n in ODD_ROWS:
+            for case, note in (((lx[:n], ly[:n]), f"rows {n}, row views:"),
+                               ((lx[:1].expand(n, LC.NLIMBS), ly[:n]), f"rows {n}, stride 0:"),
+                               ((lx[:n].contiguous(), ly[:n].contiguous()), f"rows {n}:")):
+                err = max(err, check("mont_mul", lmont.mont_mul(*case),
+                                     lmont.mont_mul_plain(*case), note))
+        kern["mont_mul"]["max_abs_err"] = err
+        # mont_pow: fp.inv's Fermat chain, p - 2 (608 dependent products), in
+        # one launch on (2048, 48) weakly reduced rows (two of them zero),
+        # against the loop of mont_mul_plain; at odd row counts on row views
+        # too, and for a short exponent
+        e = rm.P - 2
+        pw, zeros = got.clone(), [3, BATCH - 2]
+        pw[zeros] = 0
+        pw_got = lmont.mont_pow(pw, e)
+        pw_err = check("mont_pow", pw_got, lmont.mont_pow_plain(pw, e),
+                       f"{tuple(pw.shape)} e=p-2")
+        dec, vals = lfp.decode(pw_got), lfp.decode(pw)
+        assert all(dec[i] == 0 for i in zeros), "0 must map to 0"
+        assert all(v == 0 or int(d) * int(v) % rm.P == 1 for d, v in zip(dec, vals))
+        for n in ODD_ROWS:
+            for case, note in ((pw[:n], f"rows {n} e=p-2"),
+                               (lx[:n], f"rows {n}, row views e=p-2")):
+                pw_err = max(pw_err, check("mont_pow", lmont.mont_pow(case, e),
+                                           lmont.mont_pow_plain(case, e), note))
+        pw_err = max(pw_err, check("mont_pow", lmont.mont_pow(pw, 0xD201),
+                                   lmont.mont_pow_plain(pw, 0xD201),
+                                   f"{tuple(pw.shape)} e=0xD201"))
+        # what it replaces: fp.pow_static's chain as 608 mont_mul launches
+        # (made once, called through the bound entry: two chains queued
+        # behind a held stream)
+        mm_entry, bufs = cuda_build.entry("mont_mul"), [torch.empty_like(pw) for _ in range(2)]
+
+        def mont_mul_chain():
+            src, k = pw, 0
+            stream = torch.cuda.current_stream().cuda_stream
+            for i in range(e.bit_length() - 2, -1, -1):
+                for square in (True, False) if (e >> i) & 1 else (True,):
+                    dst = bufs[k % 2]
+                    y = src if square else pw
+                    err = mm_entry(src.data_ptr(), LC.NLIMBS, y.data_ptr(), LC.NLIMBS,
+                                   dst.data_ptr(), BATCH, stream)
+                    assert err == 0, f"mont_mul launch failed: CUDA error {err}"
+                    src, k = dst, k + 1
+            return src
+
+        assert torch.equal(mont_mul_chain(), pw_got)
+        steps = pow_mont_muls(e)
+        pw_ms = time_kernel(lambda i: lmont.mont_pow(pw, e), 5, batch=10)
+        pw_one = time_kernel(lambda i: lmont.mont_pow(pw[:1], e), 5, batch=10)
+        chain_ms = time_kernel(lambda i: mont_mul_chain(), 3, batch=2)
+        print(f"[mont_pow] {steps} dependent products: {pw_ms:.4f} ms at {tuple(pw.shape)} "
+              f"({pw_ms / steps * 1e3:.4f} us per step), {pw_one:.4f} ms for one row alone "
+              f"({pw_one / steps * 1e3:.4f} us per step); the chain as {steps} mont_mul "
+              f"launches {chain_ms:.4f} ms")
+        kern["mont_pow"] = {
+            "source": "mont.cu", "replaces": f"{TPU_LIMB_FP}:728", "max_abs_err": pw_err,
+            "ms": pw_ms, "plain_ms": time_host(lambda: lmont.mont_pow_plain(pw, e), 1),
+            "bound": bound_ms(2 * pw.numel() * 4, BATCH * steps * (
+                LIMB_CONV_OPS + limb_reduce_ops(lmont.first_pass_count(0, lmont.MUL_COL_HI)))),
+            "extra": {"ms_one_row": pw_one, "ms_chain_of_mont_mul": chain_ms}}
+        del pw, pw_got, bufs
         for name, line, args in (("mul", 484, (la, lb)), ("square", 489, (la,)),
                                  ("mul_by_014", 494, (la, ld)),
                                  ("cyclotomic_square", 500, (lcyc,))):
@@ -1297,8 +1386,8 @@ def main() -> int:
              "kara_full", "pow_static", "miller_run", "miller_fused", "prepare_g2_lines",
              "fq12_mul", "fq12_square",
              "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square",
-             "conv", "mont_reduce", "mont_mul", "limb_fq12_mul", "limb_fq12_square",
-             "limb_fq12_mul_by_014", "limb_fq12_cyclotomic_square"]
+             "conv", "mont_reduce", "mont_mul", "mont_pow", "limb_fq12_mul",
+             "limb_fq12_square", "limb_fq12_mul_by_014", "limb_fq12_cyclotomic_square"]
     assert sorted(order) == sorted(kern) == sorted(all_kernels)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PORT_CSRC}/{kern[name]['source']}",

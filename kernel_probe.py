@@ -40,7 +40,24 @@ embedded below. Every kernel it times is held to its plain version.
      kernel with its snapshots and inverses in dynamic shared memory
      instead of the device scratch buffer; and cut short, without the
      inversion and after the chain alone.
-Prints the card's name and power limit first and last.
+  7. the limb mont_mul before and after its warp design at 2048 rows (the
+     block design, one thread per column and block-wide barriers in every
+     shift-add pass, embedded below) and the warp design at 1, 2, 4 and 8
+     warps per block; mont_pow for p - 2 (608 dependent products) at 2048
+     rows and for one row, its us per dependent step, at 1, 2, 4 and 8 warps
+     per block, beside fp.pow_static's chain of 608 mont_mul launches in
+     either design; a mont_pow product split by clock64() stamps into its
+     phases (conv's runs, the reduction's passes and products), for one row
+     and for row 0 of 2048; cyc_square_run (csrc/cyc_exp.cu) on tiles of 2 packed
+     rows (four blocks per SM) and of 4 (two), at n = 32 and over the six
+     runs of |x| at 1024 packed rows.
+Each design is timed over queued launches behind a held stream and held to
+its plain version. Prints the card's name and power limit first and last.
+
+    python3 kernel_probe.py [section ...]
+
+runs only the sections named (1-3 are one, as they share their builds: any
+of them runs the three); no argument runs them all.
 """
 
 from __future__ import annotations
@@ -56,7 +73,7 @@ import torch
 
 from plonky2_bls12_381_pairing_torch import constants as LC
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
-from plonky2_bls12_381_pairing_torch.models.schedule import _KARA_SEGMENTS
+from plonky2_bls12_381_pairing_torch.models.schedule import _GS_SEGMENTS, _KARA_SEGMENTS
 from plonky2_bls12_381_pairing_torch.ops import cuda_build
 from plonky2_bls12_381_pairing_torch.ops.kernels import mont as lmont
 from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
@@ -235,7 +252,7 @@ def conv_stop_edits(k: int) -> list[tuple[str, str, int]]:
     and sums (the loads, the staging and the stores alone); k = 2 with the
     products but their sums stored into shared memory instead of added
     atomically (both wrong results, for the time of the parts left out)."""
-    piece = "        conv_piece(s.x, y, c, lo, acc);\n"
+    piece = "        conv_quads(s.x, y, c, lo, PIECE / 4, acc);\n"
     add = "        add_rotated(s.out, c, (lo - max(0, c - NLIMBS)) / PIECE, acc);"
     if k == 1:
         return [(piece + add, "        acc[0] = y[lo];\n        store4(&s.out[c], acc);", 1)]
@@ -452,6 +469,175 @@ KF_VARIANTS = {
 }
 
 
+# The block design of the limb mont_mul, as csrc/mont.cu and
+# limb_common.cuh had it before the warp design: one thread per column, a
+# group of 128 threads per row, four rows per block, two block-wide barriers
+# in every shift-add pass.
+BLOCK_MONT_MUL = r"""
+#include "limb_common.cuh"
+using namespace limb;
+constexpr int GROUPS = 4;
+
+struct Scratch {
+  int a[LANES];
+  int b[LANES];
+};
+
+__device__ __forceinline__ int conv_column(const int* x, const int* y, int lane) {
+  int acc = 0;
+  if (lane < NCOLS) {
+    const int lo = lane < NLIMBS ? 0 : lane - (NLIMBS - 1);
+    const int hi = lane < NLIMBS ? lane : NLIMBS - 1;
+    for (int i = lo; i <= hi; ++i) acc += x[i] * y[lane - i];
+  }
+  return acc;
+}
+
+__device__ __forceinline__ int passes(int t, int lane, int* buf, int n) {
+  for (int i = 0; i < n; ++i) {
+    buf[lane] = t;
+    __syncthreads();
+    const int below = lane > 0 ? buf[lane - 1] : 0;
+    __syncthreads();
+    t = (t & 255) + (below >> 8);
+  }
+  return t;
+}
+
+__device__ __forceinline__ int mont_reduce_lanes(int col, int lane, Scratch& sc,
+                                                 int npass) {
+  const int t = passes(col + LIMB_BIAS[lane], lane, sc.a, npass);
+  sc.a[lane] = t;
+  __syncthreads();
+  int m = 0;
+  if (lane < NRED) {
+    for (int j = 0; j <= lane; ++j) m += sc.a[j] * LIMB_PPRIME[lane - j];
+  }
+  m = passes(m, lane, sc.b, LIMB_NPASS_M);
+  sc.b[lane] = lane < NRED ? m : 0;
+  __syncthreads();
+  int u = 0;
+  if (lane < NRED + NLIMBS - 1) {
+    const int lo = lane < NLIMBS ? 0 : lane - (NLIMBS - 1);
+    const int hi = lane < NRED ? lane : NRED - 1;
+    for (int j = lo; j <= hi; ++j) u += sc.b[j] * LIMB_P[lane - j];
+  }
+  const int s = passes(t + u, lane, sc.a, LIMB_NPASS_S);
+  sc.a[lane] = s;
+  __syncthreads();
+  int res = lane < NLIMBS ? sc.a[lane + NRED] : 0;
+  if (lane == 0) {
+    int qsum = 0;
+    for (int k = 0; k < NRED; ++k) qsum += sc.a[k] * LIMB_QW[k];
+    res += (qsum % LIMB_QMOD) == LIMB_R_MOD_QMOD ? 1 : 0;
+  }
+  __syncthreads();
+  return res;
+}
+
+__global__ void __launch_bounds__(LANES * GROUPS)
+    block_mont_mul_kernel(const int* __restrict__ a, long long sa, const int* __restrict__ b,
+                          long long sb, int* __restrict__ out, int rows) {
+  __shared__ int xs[GROUPS][NLIMBS], ys[GROUPS][NLIMBS];
+  __shared__ Scratch sc[GROUPS];
+  const int lane = threadIdx.x, g = threadIdx.y;
+  const long long row = static_cast<long long>(blockIdx.x) * GROUPS + g;
+  const bool live = row < rows;
+  if (lane < NLIMBS) {
+    xs[g][lane] = live ? a[row * sa + lane] : 0;
+    ys[g][lane] = live ? b[row * sb + lane] : 0;
+  }
+  __syncthreads();
+  const int col = conv_column(xs[g], ys[g], lane);
+  const int res = mont_reduce_lanes(col, lane, sc[g], LIMB_NPASS_MUL);
+  if (live && lane < NLIMBS) out[row * NLIMBS + lane] = res;
+}
+
+extern "C" int limb_mont_mul_launch(const int* a, long long sa, const int* b, long long sb,
+                                    int* out, int rows, void* stream) {
+  block_mont_mul_kernel<<<(rows + GROUPS - 1) / GROUPS, dim3(LANES, GROUPS), 0,
+                          static_cast<cudaStream_t>(stream)>>>(a, sa, b, sb, out, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+# mont.cu's mont_pow with clock64() stamps on block 0's thread 0 after each
+# phase of a product (mul_warp and limb_common.cuh's mont_reduce_warp,
+# inlined into the copy): the phases' cycles summed over the chain
+MONT_PHASES = ("the product's runs and their adds", "its columns read back",
+               "t = passes(col + bias)", "m = passes(t * p')", "the product m * p",
+               "s = passes(t + m * p)", "the quotient's sum", "the result's stores")
+MONT_STAMP_DEFS = r"""
+__device__ long long mont_stamp_cycles[8];
+__shared__ long long stamp_last;
+#define STAMP(k) if (blockIdx.x == 0 && threadIdx.x == 0) { const long long now = clock64(); \
+  mont_stamp_cycles[k] += now - stamp_last; stamp_last = now; }
+extern "C" int mont_stamp_read(long long* host) {
+  cudaMemcpyFromSymbol(host, mont_stamp_cycles, sizeof(mont_stamp_cycles));
+  const long long zero[8] = {};
+  cudaMemcpyToSymbol(mont_stamp_cycles, zero, sizeof(zero));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+MONT_STAMP_COMMON_EDITS = [
+    _after("  warp_passes(x, lane, npass);\n", "  STAMP(2)\n"),
+    _after("  store4(&ws.m[c0], m);\n  __syncwarp();\n", "  STAMP(3)\n"),
+    _after("(hi - lo) / 4 + 1 : 0, x);\n  }\n", "  STAMP(4)\n"),
+    _after("  warp_passes(x, lane, LIMB_NPASS_S);\n", "  STAMP(5)\n"),
+    _after("qsum += __shfl_xor_sync(FULL_MASK, qsum, d);\n", "  STAMP(6)\n"),
+]
+MONT_STAMP_EDITS = [
+    ("  __syncwarp();\n  int cols[4] = {0, 0, 0, 0};\n",
+     "  __syncwarp();\n  STAMP(0)\n  int cols[4] = {0, 0, 0, 0};\n", 1),
+    ("  mont_reduce_warp(cols, lane, s.ws, k, LIMB_NPASS_MUL, dst);\n  __syncwarp();\n",
+     "  STAMP(1)\n  mont_reduce_warp(cols, lane, s.ws, k, LIMB_NPASS_MUL, dst);\n"
+     "  __syncwarp();\n  STAMP(7)\n", 1),
+    _after("  stage_row(row_a, base, lane);\n  __syncwarp();\n",
+           "  if (blockIdx.x == 0 && threadIdx.x == 0) stamp_last = clock64();\n"),
+]
+
+
+def with_common(source: str, common_edits=(), edits=(), prefix: str = "") -> str:
+    """A csrc/ source of the limb tier with limb_common.cuh inlined, both
+    edited, and `prefix` before the header's text."""
+    common = edited(CSRC / "limb_common.cuh", list(common_edits))
+    include = '#include "limb_common.cuh"\n'
+    return edited(CSRC / source, [(include, prefix + common, 1)] + list(edits))
+
+
+def mont_stamped() -> str:
+    """mont.cu with limb_common.cuh inlined and both stamped."""
+    return with_common("mont.cu", MONT_STAMP_COMMON_EDITS, MONT_STAMP_EDITS, MONT_STAMP_DEFS)
+
+
+#: the unroll factor of limb_common.cuh's conv_quads loop (shipped: 4)
+QUADS_UNROLL = "#pragma unroll 4\n  for (int k = 0; k < n; ++k) {"
+
+
+def quads_unroll(u: int) -> list[tuple[str, str, int]]:
+    return [(QUADS_UNROLL, QUADS_UNROLL.replace("unroll 4", f"unroll {u}"), 1)]
+
+
+def constant_edit(source: str, name: str, value) -> tuple[str, str, int]:
+    """The line `constexpr int <name> = ...;` of a csrc/ source, set to
+    `value`."""
+    prefix = f"constexpr int {name} = "
+    line = next(x for x in (CSRC / source).read_text().splitlines() if x.startswith(prefix))
+    return line, f"{prefix}{value};", 1
+
+
+def mul_warps_edits(w: int) -> list[tuple[str, str, int]]:
+    """mont.cu with w warps (rows) per block in mont_mul and mont_pow."""
+    return [constant_edit("mont.cu", name, w) for name in ("MUL_WARPS", "POW_WARPS")]
+
+
+def run_tile_edits(tile: int) -> list[tuple[str, str, int]]:
+    """cyc_exp.cu with cyc_square_run on tiles of `tile` packed rows (8 /
+    tile blocks per SM)."""
+    return [constant_edit("cyc_exp.cu", "RUN_TILE", tile)]
+
+
 def edited(src: Path, edits: list[tuple[str, str, int]]) -> str:
     text = src.read_text()
     for anchor, replacement, count in edits:
@@ -503,10 +689,165 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def probe_redesigns(libs: dict, dev: torch.device) -> None:
+    """Section 7: the limb mont_mul before and after its warp design, the
+    mont_pow chain against the chain of mont_mul launches it replaces, and
+    cyc_square_run on 2- and 4-row tiles."""
+    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    stream = lambda: P(torch.cuda.current_stream().cuda_stream)
+    rows, warps = 2048, (1, 2, 4, 8)
+    rng = np.random.default_rng(77)
+    a, b = (torch.from_numpy(rng.integers(0, LC.SEMI_DIG + 1, (rows, 48), dtype=np.int32))
+            for _ in range(2))
+    for t in (a, b):
+        t[:, -1] %= int(LC.P_LIMBS[-1])
+    a, b = a.to(dev), b.to(dev)
+    out = torch.empty_like(a)
+
+    def mul(lib, x, y, dst, n=rows):
+        err = lib.limb_mont_mul_launch(P(x.data_ptr()), S(48), P(y.data_ptr()), S(48),
+                                       P(dst.data_ptr()), I(n), stream())
+        assert err == 0, err
+
+    want = lmont.mont_mul_plain(a, b)
+    designs = {"block design (before)": libs["mont_mul_block"],
+               **{f"warp design, {w} warp(s) per block": libs[f"mul_warps{w}"]
+                  for w in warps}}
+    for name, lib in designs.items():
+        out.zero_()
+        mul(lib, a, b, out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), f"mont_mul's {name} disagrees with mont_mul_plain"
+        print(f"[mont_mul] {name}: {time_ms(lambda: mul(lib, a, b, out), 50):.4f} ms "
+              f"at ({rows}, 48)")
+
+    # mont_pow for p - 2 against fp.pow_static's chain of mont_mul launches
+    e = rm.P - 2
+    bits = lmont.pow_bits(e)
+    steps = e.bit_length() - 1 + bin(e).count("1") - 1
+    pow_want = lmont.mont_pow_plain(a, e)
+    bufs = [torch.empty_like(a) for _ in range(2)]
+
+    def chain(lib, n):
+        """fp.pow_static's products, one launch each, into two buffers in
+        turn."""
+        src, k = a, 0
+        for i in range(e.bit_length() - 2, -1, -1):
+            for square in (True, False) if (e >> i) & 1 else (True,):
+                dst = bufs[k % 2]
+                mul(lib, src, src if square else a, dst, n)
+                src, k = dst, k + 1
+        return src
+
+    def pow_run(lib, n):
+        err = lib.limb_mont_pow_launch(P(a.data_ptr()), S(48), P(ctypes.addressof(bits)),
+                                       P(out.data_ptr()), I(n), stream())
+        assert err == 0, err
+
+    for name, lib in (("block design", libs["mont_mul_block"]),
+                      ("warp design", libs["mul_warps4"])):
+        got = chain(lib, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pow_want), f"the chain of {name} mont_mul disagrees"
+        ms, one = (time_ms(lambda n=n: chain(lib, n), 1) for n in (rows, 1))
+        print(f"[mont_pow] {steps} mont_mul launches, {name}: {ms:.4f} ms at ({rows}, 48), "
+              f"{one:.4f} ms for one row ({one / steps * 1e3:.3f} us per step)")
+    cyc = (ctypes.c_longlong * 8)()
+    lib = libs["mont_stamped"]
+    for n in (1, rows):
+        lib.mont_stamp_read(cyc)  # zero the counters
+        pow_run(lib, n)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:n], pow_want[:n]), "the stamped mont_pow disagrees"
+        lib.mont_stamp_read(cyc)
+        per = [cyc[k] / steps for k in range(len(MONT_PHASES))]
+        print(f"[mont_pow split] cycles per dependent product (p - 2, {steps} products, "
+              f"row 0 of {n}, stamps on): total {sum(per):.1f}")
+        for label, c in zip(MONT_PHASES, per):
+            print(f"[mont_pow split]   {label:36s} {c:8.1f}")
+    for w in warps:
+        lib = libs[f"mul_warps{w}"]
+        out.zero_()
+        pow_run(lib, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pow_want), f"mont_pow at {w} warps per block disagrees"
+        ms, one = (time_ms(lambda n=n: pow_run(lib, n), 5) for n in (rows, 1))
+        print(f"[mont_pow] p - 2 in one launch, {w} warp(s) per block: {ms:.4f} ms at "
+              f"({rows}, 48) ({ms / steps * 1e3:.3f} us per step), {one:.4f} ms for one "
+              f"row ({one / steps * 1e3:.3f} us per step)")
+
+    # conv_quads' unroll factor: mont_pow, mont_mul and mont_reduce, and the
+    # limb tower kernel (whose warp reductions run it), by factor
+    cols = torch.stack([lmont.conv_plain(a, b)] * 12, dim=1)  # (rows, 12, 95)
+    hi = lmont.MUL_COL_HI
+    npass = lmont.first_pass_count(0, hi)
+    red_want = lmont.mont_reduce_plain(cols, 0, hi)
+    red_out = torch.empty_like(red_want)
+    f12 = torch.from_numpy(rng.integers(0, LC.SEMI_DIG + 1, (rows, 12, 48), dtype=np.int32))
+    f12[..., -1] %= int(LC.P_LIMBS[-1])
+    f12 = f12.to(dev)
+    tower_want = ltower.fq12_cyclotomic_square_plain(f12)
+    tower_out = torch.empty_like(f12)
+    for u in (1, 2, 4):
+        lib, tlib = libs[f"mont_unroll{u}"], libs[f"limb_tower_unroll{u}"]
+        red = lambda lib=lib: lib.limb_mont_reduce_launch(
+            P(cols.data_ptr()), S(95), I(95), I(npass), P(red_out.data_ptr()), I(rows * 12),
+            stream())
+        sq = lambda tlib=tlib: tlib.limb_fq12_cyclotomic_square_launch(
+            P(f12.data_ptr()), S(12 * 48), P(tower_out.data_ptr()), I(rows), stream())
+        mul(lib, a, b, out)
+        assert red() == 0 and sq() == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(red_out, red_want), u
+        assert torch.equal(tower_out, tower_want), u
+        out.zero_()
+        pow_run(lib, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pow_want), u
+        print(f"[conv_quads] unroll {u}: mont_pow {time_ms(lambda: pow_run(lib, rows), 5):.4f} ms "
+              f"at ({rows}, 48), {time_ms(lambda: pow_run(lib, 1), 5):.4f} for one row; "
+              f"mont_mul {time_ms(lambda: mul(lib, a, b, out), 50):.4f}; mont_reduce "
+              f"({rows}, 12, 95) {time_ms(red, 50):.4f}; limb_fq12_cyclotomic_square "
+              f"({rows}, 12, 48) {time_ms(sq, 50):.4f} ms")
+
+    # cyc_square_run's tiles at the path's shape
+    run_rows = 1024
+    ints = np.empty((2 * run_rows, 12), dtype=object)
+    for idx in np.ndindex(ints.shape):
+        ints[idx] = int.from_bytes(rng.bytes(48), "little") % rm.P
+    f = torch.from_numpy(fp.encode(ints)).to(dev)
+    t0 = tower.mul(tower.conjugate(f), tower.inv(f))
+    cyc = tower.mul(tower.frobenius_pow(t0, 2), t0).contiguous()
+    cyc_out = torch.empty_like(cyc)
+    lengths = tuple(n for n, _ in _GS_SEGMENTS)
+    wants = {n: kernels.cyc_square_run_plain(cyc, n) for n in set(lengths) | {32}}
+    for tile in (2, 4):
+        lib = libs[f"run_tile{tile}"]
+
+        def run(n, lib=lib):
+            err = lib.cyc_square_run_launch(P(cyc.data_ptr()), P(cyc_out.data_ptr()),
+                                            I(run_rows), I(n), stream())
+            assert err == 0, err
+
+        times = {}
+        for n in sorted(wants):
+            run(n)
+            torch.cuda.synchronize()
+            assert torch.equal(cyc_out, wants[n]), f"cyc_square_run on {tile}-row tiles"
+            times[n] = time_ms(lambda n=n: run(n), 10)
+        print(f"[cyc_square_run] tiles of {tile} packed rows ({8 // tile} blocks per SM): "
+              f"n = 32 {times[32]:.4f} ms at ({run_rows}, 12, 128); the runs {lengths} "
+              + ", ".join(f"{times[n]:.4f}" for n in lengths)
+              + f" ms, sum {sum(times[n] for n in lengths):.4f} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device is available", file=sys.stderr)
         return 2
+    sections = {int(x) for x in sys.argv[1:]} or set(range(1, 8))
+    if sections & {1, 2, 3}:
+        sections |= {1, 2, 3}
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -518,202 +859,221 @@ def main() -> int:
     pow_src, tower_src = CSRC / "pow_static.cu", CSRC / "limb_tower.cu"
     warps = (1, 2, 4, 8)
     mont_warps = (1, 2, 4, 8, 16)
-    libs = nvcc({**{f"mont_warps{w}": edited(CSRC / "mont.cu", mont_warps_edits(w))
-                    for w in mont_warps},
-                 **{f"conv_stop{k}": edited(CSRC / "mont.cu", conv_stop_edits(k))
-                    for k in (1, 2)},
-                 **{f"conv_blocks{n}": edited(CSRC / "mont.cu", conv_blocks_edits(n))
-                    for n in (6, 8)},
-                 "block_pow": BLOCK_POW,
-                 "pow_stamped": edited(pow_src, POW_STAMP_EDITS),
-                 **{f"pow_warps{w}": edited(pow_src, [("constexpr int WARPS = 1;",
-                                                       f"constexpr int WARPS = {w};", 1)])
-                    for w in warps},
-                 **{f"tower_stop{k}": edited(tower_src, tower_stop_edits(k))
-                    for k in (1, 2, 3)},
-                 **{name: edited(CSRC / "kara_full.cu", edits)
-                    for name, edits in KF_VARIANTS.items()}})
-
-    e = rm.P - 2
-    steps = len(fp.exponent_bits(e)) + sum(fp.exponent_bits(e))
-    rng = np.random.default_rng(7)
-    vals = [int.from_bytes(rng.bytes(48), "little") % rm.P for _ in range(256)]
-    a = torch.from_numpy(fp.encode(vals)).to(dev)
-    bits = torch.tensor(fp.exponent_bits(e), dtype=torch.int32, device=dev)
-    want = fp.pow_static(a, e)
+    sources = {
+        1: {"block_pow": BLOCK_POW,
+            "pow_stamped": edited(pow_src, POW_STAMP_EDITS),
+            **{f"pow_warps{w}": edited(pow_src, [("constexpr int WARPS = 1;",
+                                                  f"constexpr int WARPS = {w};", 1)])
+               for w in warps}},
+        4: {f"tower_stop{k}": edited(tower_src, tower_stop_edits(k)) for k in (1, 2, 3)},
+        5: {**{f"mont_warps{w}": edited(CSRC / "mont.cu", mont_warps_edits(w))
+               for w in mont_warps},
+            **{f"conv_stop{k}": edited(CSRC / "mont.cu", conv_stop_edits(k)) for k in (1, 2)},
+            **{f"conv_blocks{n}": edited(CSRC / "mont.cu", conv_blocks_edits(n))
+               for n in (6, 8)}},
+        6: {name: edited(CSRC / "kara_full.cu", edits) for name, edits in KF_VARIANTS.items()},
+        7: {"mont_mul_block": BLOCK_MONT_MUL, "mont_stamped": mont_stamped(),
+            **{f"{src}_unroll{u}": with_common(f"{src}.cu", quads_unroll(u))
+               for src in ("mont", "limb_tower") for u in (1, 2, 4)},
+            **{f"mul_warps{w}": edited(CSRC / "mont.cu", mul_warps_edits(w)) for w in warps},
+            **{f"run_tile{t}": edited(CSRC / "cyc_exp.cu", run_tile_edits(t))
+               for t in (2, 4)}},
+    }
+    libs = nvcc({name: text for k, srcs in sources.items() if k in sections
+                 for name, text in srcs.items()})
     P, I = ctypes.c_void_p, ctypes.c_int
     stream = lambda: P(torch.cuda.current_stream().cuda_stream)
-
-    def pow_run(lib, launch: str, out: torch.Tensor, rows: int) -> None:
-        err = getattr(lib, launch)(P(a.data_ptr()), P(out.data_ptr()), I(rows),
-                                   P(bits.data_ptr()), I(bits.numel()), stream())
-        assert err == 0, (launch, err)
-
-    def pow_times(name: str, lib, launch: str) -> None:
-        out = torch.empty_like(a)
-        pow_run(lib, launch, out, a.shape[0])
-        torch.cuda.synchronize()
-        assert torch.equal(out, want), f"{name} disagrees with fp.pow_static"
-        ms = time_ms(lambda: pow_run(lib, launch, out, a.shape[0]))
-        one = time_ms(lambda: pow_run(lib, launch, out, 1))
-        print(f"[pow] {name}: {ms:.4f} ms at {tuple(a.shape)}, {one:.4f} ms for one row "
-              f"({one / steps * 1e3:.3f} us per step)")
-
-    # 1. before and after, timed alike; 3. warps per block
-    pow_times("block design (before)", libs["block_pow"], "block_pow_launch")
-    for w in warps:
-        pow_times(f"warp design, {w} warp(s) per block", libs[f"pow_warps{w}"],
-                  "pow_static_launch")
-
-    # 2. the split of a step
-    cyc = (ctypes.c_longlong * 8)()
-    for name, lib, launch, read in (
-            ("block", libs["block_pow"], "block_stamped_launch", "block_stamped_cycles"),
-            ("warp", libs["pow_stamped"], "pow_static_launch", "pow_stamped_cycles")):
-        out = torch.empty_like(a[:1])
-        getattr(lib, read)(cyc)  # zero the counters
-        pow_run(lib, launch, out, 1)
-        torch.cuda.synchronize()
-        assert torch.equal(out, want[:1]), f"the stamped {name} kernel disagrees"
-        getattr(lib, read)(cyc)
-        per = [cyc[k] / steps for k in range(len(PHASES))]
-        print(f"[pow split] {name} design, cycles per dependent step (p - 2, {steps} "
-              f"steps, one row, stamps on): total {sum(per):.1f}")
-        for label, c in zip(PHASES, per):
-            print(f"[pow split]   {label:32s} {c:8.1f}")
-        ms = time_ms(lambda: pow_run(lib, launch, out, 1))
-        print(f"[pow split] {name} design with stamps, one row: {ms:.4f} ms "
-              f"({ms / steps * 1e3:.3f} us per step)")
-
-    # 4. the limb tower kernel, and the time of its first stages alone
     rows = 2048
-    la = torch.from_numpy(rng.integers(0, 259, (rows, 12, 48), dtype=np.int32)).to(dev)
-    lb = torch.from_numpy(rng.integers(0, 259, (rows, 12, 48), dtype=np.int32)).to(dev)
-    la[..., -1] %= int(LC.P_LIMBS[-1])
-    lb[..., -1] %= int(LC.P_LIMBS[-1])
-    ld = lb[:, :6].contiguous()
-    for name in ltower.FORMULAS:
-        second, n = {"mul": (lb, 12), "mul_by_014": (ld, 6)}.get(name, (None, 0))
-        args = (la,) if second is None else (la, second)
-        plain = getattr(ltower, f"fq12_{name}_plain")(*args)
-        run = lambda: getattr(ltower, f"fq12_{name}")(*args)
-        assert torch.equal(run(), plain), name
-        sink = torch.empty_like(la)
-        ptrs = [P(la.data_ptr()), ctypes.c_longlong(12 * 48)]
-        if second is not None:
-            ptrs += [P(second.data_ptr()), ctypes.c_longlong(n * 48)]
-        stages = []
-        for k in (1, 2, 3):
-            entry = getattr(libs[f"tower_stop{k}"], f"limb_fq12_{name}_launch")
-            ms = time_ms(lambda: entry(*ptrs, P(sink.data_ptr()), I(rows), stream()))
-            stages.append(f"stages 1-{k} {ms:.4f} ms")
-        print(f"[tower] limb_fq12_{name} at ({rows}, 12, 48): {time_ms(run):.4f} ms; "
-              f"{', '.join(stages)}")
-    for line in cuda_build.build_log.get("limb_tower.cu", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[ptxas] limb_tower.cu: {line.strip()}")
 
-    # 5. mont.cu's warp kernels by warps per block
-    sa = torch.from_numpy(rng.integers(0, 517, (rows, 30, 2, 48), dtype=np.int32)).to(dev)
-    pairs = [(sa[:, j, 0], sa[:, j, 1]) for j in range(30)]  # row stride 30 * 2 * 48
-    arg = lmont._ConvPairs()
-    for j, (x, y) in enumerate(pairs):
-        arg.a[j], arg.b[j] = x.data_ptr(), y.data_ptr()
-        arg.sa[j] = arg.sb[j] = x.stride(0)
-    conv_out = torch.empty((30, rows, 95), dtype=torch.int32, device=dev)
-    conv_want = torch.stack([lmont.conv_plain(x, y) for x, y in pairs])
-    cols = torch.stack([lmont.conv_plain(x, y) for x, y in pairs[:12]], dim=1)  # (rows, 12, 95)
-    hi = 48 * 516 * 516
-    npass = lmont.first_pass_count(0, hi)
-    def conv(lib, k, per_warp=0):
-        err = lib.limb_conv_launch(P(ctypes.addressof(arg)), I(k), P(conv_out.data_ptr()),
-                                   I(rows), I(per_warp or lmont.conv_rows_per_warp(k, rows)),
-                                   stream())
-        assert err == 0, err
+    if 1 in sections:
+        rng = np.random.default_rng(7)
+        e = rm.P - 2
+        steps = len(fp.exponent_bits(e)) + sum(fp.exponent_bits(e))
+        vals = [int.from_bytes(rng.bytes(48), "little") % rm.P for _ in range(256)]
+        a = torch.from_numpy(fp.encode(vals)).to(dev)
+        bits = torch.tensor(fp.exponent_bits(e), dtype=torch.int32, device=dev)
+        want = fp.pow_static(a, e)
 
-    def conv_checked(lib, per_warp=0):
-        conv_out.zero_()
-        conv(lib, 30, per_warp)
-        torch.cuda.synchronize()
-        return torch.equal(conv_out, conv_want)
+        def pow_run(lib, launch: str, out: torch.Tensor, rows: int) -> None:
+            err = getattr(lib, launch)(P(a.data_ptr()), P(out.data_ptr()), I(rows),
+                                       P(bits.data_ptr()), I(bits.numel()), stream())
+            assert err == 0, (launch, err)
 
-    for w in mont_warps:
-        lib = libs[f"mont_warps{w}"]
-        assert conv_checked(lib), f"conv at {w} warps per block"
-        times = [time_ms(lambda: conv(lib, 30)), time_ms(lambda: conv(lib, 1))]
-        for n in (12, 2):
-            red_in = cols[:, :n].contiguous()
-            red_out = torch.empty((rows, n, 48), dtype=torch.int32, device=dev)
-            red = lambda: lib.limb_mont_reduce_launch(
-                P(red_in.data_ptr()), ctypes.c_longlong(95), I(95), I(npass),
-                P(red_out.data_ptr()), I(rows * n), stream())
-            assert red() == 0
+        def pow_times(name: str, lib, launch: str) -> None:
+            out = torch.empty_like(a)
+            pow_run(lib, launch, out, a.shape[0])
             torch.cuda.synchronize()
-            assert torch.equal(red_out, lmont.mont_reduce_plain(red_in, 0, hi)), (w, n)
-            times.append(time_ms(red))
-        print(f"[mont] {w} warp(s) per block: conv 30 pairs {times[0]:.4f} ms, one pair "
-              f"{times[1]:.4f} ms; mont_reduce (2048, 12, 95) {times[2]:.4f} ms, "
-              f"(2048, 2, 95) {times[3]:.4f} ms")
-    lib = libs["mont_warps8"]  # conv as shipped
-    for n in range(1, lmont.CONV_ROWS_PER_WARP + 1):
-        assert conv_checked(lib, n), f"conv at {n} rows per warp"
-        print(f"[mont] conv 30 pairs at {n} row(s) per warp: "
-              f"{time_ms(lambda: conv(lib, 30, n)):.4f} ms (the rule's: "
-              f"{lmont.conv_rows_per_warp(30, rows)})")
-    for k, label in ((1, "the loads, staging and stores alone"),
-                     (2, "without the atomic adds")):
-        print(f"[mont] conv 30 pairs, {label}: "
-              f"{time_ms(lambda: conv(libs[f'conv_stop{k}'], 30)):.4f} ms")
-    for n in (6, 8):
-        lib = libs[f"conv_blocks{n}"]
-        assert conv_checked(lib), f"conv at {n} blocks per SM"
-        print(f"[mont] conv with launch bounds for {n} blocks per SM: 30 pairs "
-              f"{time_ms(lambda: conv(lib, 30)):.4f} ms, one pair "
-              f"{time_ms(lambda: conv(lib, 1)):.4f} ms")
+            assert torch.equal(out, want), f"{name} disagrees with fp.pow_static"
+            ms = time_ms(lambda: pow_run(lib, launch, out, a.shape[0]))
+            one = time_ms(lambda: pow_run(lib, launch, out, 1))
+            print(f"[pow] {name}: {ms:.4f} ms at {tuple(a.shape)}, {one:.4f} ms for one row "
+                  f"({one / steps * 1e3:.3f} us per step)")
 
-    # 6. kara_full's designs at the path's shape, on cyclotomic rows with the
-    # identity in a whole row and in one slot
-    kf_rows, four_rows = 1024, 4
-    ints = np.empty((2 * kf_rows, 12), dtype=object)
-    for idx in np.ndindex(ints.shape):
-        ints[idx] = int.from_bytes(rng.bytes(48), "little") % rm.P
-    f = torch.from_numpy(fp.encode(ints)).to(dev)
-    t0 = tower.mul(tower.conjugate(f), tower.inv(f))
-    cyc = tower.mul(tower.frobenius_pow(t0, 2), t0).contiguous()
-    one = tower.one((), dev)
-    cyc[1] = one
-    cyc[2, :, RC.SUB:] = one[:, RC.SUB:]
-    kf_want = kernels.kara_full_plain(cyc, _KARA_SEGMENTS)
-    segs = torch.tensor(_KARA_SEGMENTS, dtype=torch.int32, device=dev)
-    kbits = torch.tensor(fp.exponent_bits(rm.P - 2), dtype=torch.int32, device=dev)
-    scratch = torch.empty((kf_rows, kernels._KARA_FULL_SCRATCH, RC.LANES), dtype=torch.int32,
-                          device=dev)
-    kf_out = torch.empty_like(cyc)
+        # 1. before and after, timed alike; 3. warps per block
+        pow_times("block design (before)", libs["block_pow"], "block_pow_launch")
+        for w in warps:
+            pow_times(f"warp design, {w} warp(s) per block", libs[f"pow_warps{w}"],
+                      "pow_static_launch")
 
-    def kf(lib, n):
-        err = lib.kara_full_launch(P(cyc.data_ptr()), P(kf_out.data_ptr()),
-                                   P(scratch.data_ptr()), I(n), P(segs.data_ptr()),
-                                   I(segs.numel()), P(kbits.data_ptr()), I(kbits.numel()),
-                                   stream())
-        assert err == 0, err
+        # 2. the split of a step
+        cyc = (ctypes.c_longlong * 8)()
+        for name, lib, launch, read in (
+                ("block", libs["block_pow"], "block_stamped_launch", "block_stamped_cycles"),
+                ("warp", libs["pow_stamped"], "pow_static_launch", "pow_stamped_cycles")):
+            out = torch.empty_like(a[:1])
+            getattr(lib, read)(cyc)  # zero the counters
+            pow_run(lib, launch, out, 1)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want[:1]), f"the stamped {name} kernel disagrees"
+            getattr(lib, read)(cyc)
+            per = [cyc[k] / steps for k in range(len(PHASES))]
+            print(f"[pow split] {name} design, cycles per dependent step (p - 2, {steps} "
+                  f"steps, one row, stamps on): total {sum(per):.1f}")
+            for label, c in zip(PHASES, per):
+                print(f"[pow split]   {label:32s} {c:8.1f}")
+            ms = time_ms(lambda: pow_run(lib, launch, out, 1))
+            print(f"[pow split] {name} design with stamps, one row: {ms:.4f} ms "
+                  f"({ms / steps * 1e3:.3f} us per step)")
 
-    kf_ms = {}
-    for name in KF_VARIANTS:
-        kf(libs[name], kf_rows)
-        torch.cuda.synchronize()
-        exact = name not in ("kf_noinv", "kf_chain")
-        assert not exact or torch.equal(kf_out, kf_want), f"{name} disagrees with its plain version"
-        kf_ms[name] = time_ms(lambda: kf(libs[name], kf_rows), 10)
-        four = time_ms(lambda: kf(libs[name], four_rows), 20)
-        note = "rows those of kara_full_plain" if exact else "cut short: timing only"
-        print(f"[kara_full] {name}: {kf_ms[name]:.4f} ms at ({kf_rows}, 12, 128), "
-              f"{four:.4f} ms at ({four_rows}, 12, 128) ({note})")
-    rest = kf_ms["kf_noinv"]
-    for name in ("kf_tile", "kf_tile4", "kf_tile4_1blk", "kf_warp", "kf_warp4",
-                 "kf_warp4_1blk"):
-        print(f"[kara_full] {name}: the inversion {kf_ms[name] - rest:.4f} ms of "
-              f"{kf_ms[name]:.4f}; the rest {rest:.4f} ms, the chain alone "
-              f"{kf_ms['kf_chain']:.4f}")
+    if 4 in sections:
+        rng = np.random.default_rng(4)
+        # 4. the limb tower kernel, and the time of its first stages alone
+        la = torch.from_numpy(rng.integers(0, 259, (rows, 12, 48), dtype=np.int32)).to(dev)
+        lb = torch.from_numpy(rng.integers(0, 259, (rows, 12, 48), dtype=np.int32)).to(dev)
+        la[..., -1] %= int(LC.P_LIMBS[-1])
+        lb[..., -1] %= int(LC.P_LIMBS[-1])
+        ld = lb[:, :6].contiguous()
+        for name in ltower.FORMULAS:
+            second, n = {"mul": (lb, 12), "mul_by_014": (ld, 6)}.get(name, (None, 0))
+            args = (la,) if second is None else (la, second)
+            plain = getattr(ltower, f"fq12_{name}_plain")(*args)
+            run = lambda: getattr(ltower, f"fq12_{name}")(*args)
+            assert torch.equal(run(), plain), name
+            sink = torch.empty_like(la)
+            ptrs = [P(la.data_ptr()), ctypes.c_longlong(12 * 48)]
+            if second is not None:
+                ptrs += [P(second.data_ptr()), ctypes.c_longlong(n * 48)]
+            stages = []
+            for k in (1, 2, 3):
+                entry = getattr(libs[f"tower_stop{k}"], f"limb_fq12_{name}_launch")
+                ms = time_ms(lambda: entry(*ptrs, P(sink.data_ptr()), I(rows), stream()))
+                stages.append(f"stages 1-{k} {ms:.4f} ms")
+            print(f"[tower] limb_fq12_{name} at ({rows}, 12, 48): {time_ms(run):.4f} ms; "
+                  f"{', '.join(stages)}")
+        for line in cuda_build.build_log.get("limb_tower.cu", "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas] limb_tower.cu: {line.strip()}")
+
+    if 5 in sections:
+        rng = np.random.default_rng(5)
+        # 5. mont.cu's warp kernels by warps per block
+        sa = torch.from_numpy(rng.integers(0, 517, (rows, 30, 2, 48), dtype=np.int32)).to(dev)
+        pairs = [(sa[:, j, 0], sa[:, j, 1]) for j in range(30)]  # row stride 30 * 2 * 48
+        arg = lmont._ConvPairs()
+        for j, (x, y) in enumerate(pairs):
+            arg.a[j], arg.b[j] = x.data_ptr(), y.data_ptr()
+            arg.sa[j] = arg.sb[j] = x.stride(0)
+        conv_out = torch.empty((30, rows, 95), dtype=torch.int32, device=dev)
+        conv_want = torch.stack([lmont.conv_plain(x, y) for x, y in pairs])
+        # (rows, 12, 95)
+        cols = torch.stack([lmont.conv_plain(x, y) for x, y in pairs[:12]], dim=1)
+        hi = 48 * 516 * 516
+        npass = lmont.first_pass_count(0, hi)
+        def conv(lib, k, per_warp=0):
+            err = lib.limb_conv_launch(P(ctypes.addressof(arg)), I(k), P(conv_out.data_ptr()),
+                                       I(rows), I(per_warp or lmont.conv_rows_per_warp(k, rows)),
+                                       stream())
+            assert err == 0, err
+
+        def conv_checked(lib, per_warp=0):
+            conv_out.zero_()
+            conv(lib, 30, per_warp)
+            torch.cuda.synchronize()
+            return torch.equal(conv_out, conv_want)
+
+        for w in mont_warps:
+            lib = libs[f"mont_warps{w}"]
+            assert conv_checked(lib), f"conv at {w} warps per block"
+            times = [time_ms(lambda: conv(lib, 30)), time_ms(lambda: conv(lib, 1))]
+            for n in (12, 2):
+                red_in = cols[:, :n].contiguous()
+                red_out = torch.empty((rows, n, 48), dtype=torch.int32, device=dev)
+                red = lambda: lib.limb_mont_reduce_launch(
+                    P(red_in.data_ptr()), ctypes.c_longlong(95), I(95), I(npass),
+                    P(red_out.data_ptr()), I(rows * n), stream())
+                assert red() == 0
+                torch.cuda.synchronize()
+                assert torch.equal(red_out, lmont.mont_reduce_plain(red_in, 0, hi)), (w, n)
+                times.append(time_ms(red))
+            print(f"[mont] {w} warp(s) per block: conv 30 pairs {times[0]:.4f} ms, one pair "
+                  f"{times[1]:.4f} ms; mont_reduce (2048, 12, 95) {times[2]:.4f} ms, "
+                  f"(2048, 2, 95) {times[3]:.4f} ms")
+        lib = libs["mont_warps8"]  # conv as shipped
+        for n in range(1, lmont.CONV_ROWS_PER_WARP + 1):
+            assert conv_checked(lib, n), f"conv at {n} rows per warp"
+            print(f"[mont] conv 30 pairs at {n} row(s) per warp: "
+                  f"{time_ms(lambda: conv(lib, 30, n)):.4f} ms (the rule's: "
+                  f"{lmont.conv_rows_per_warp(30, rows)})")
+        for k, label in ((1, "the loads, staging and stores alone"),
+                         (2, "without the atomic adds")):
+            print(f"[mont] conv 30 pairs, {label}: "
+                  f"{time_ms(lambda: conv(libs[f'conv_stop{k}'], 30)):.4f} ms")
+        for n in (6, 8):
+            lib = libs[f"conv_blocks{n}"]
+            assert conv_checked(lib), f"conv at {n} blocks per SM"
+            print(f"[mont] conv with launch bounds for {n} blocks per SM: 30 pairs "
+                  f"{time_ms(lambda: conv(lib, 30)):.4f} ms, one pair "
+                  f"{time_ms(lambda: conv(lib, 1)):.4f} ms")
+
+    if 6 in sections:
+        rng = np.random.default_rng(6)
+        # 6. kara_full's designs at the path's shape, on cyclotomic rows with the
+        # identity in a whole row and in one slot
+        kf_rows, four_rows = 1024, 4
+        ints = np.empty((2 * kf_rows, 12), dtype=object)
+        for idx in np.ndindex(ints.shape):
+            ints[idx] = int.from_bytes(rng.bytes(48), "little") % rm.P
+        f = torch.from_numpy(fp.encode(ints)).to(dev)
+        t0 = tower.mul(tower.conjugate(f), tower.inv(f))
+        cyc = tower.mul(tower.frobenius_pow(t0, 2), t0).contiguous()
+        one = tower.one((), dev)
+        cyc[1] = one
+        cyc[2, :, RC.SUB:] = one[:, RC.SUB:]
+        kf_want = kernels.kara_full_plain(cyc, _KARA_SEGMENTS)
+        segs = torch.tensor(_KARA_SEGMENTS, dtype=torch.int32, device=dev)
+        kbits = torch.tensor(fp.exponent_bits(rm.P - 2), dtype=torch.int32, device=dev)
+        scratch = torch.empty((kf_rows, kernels._KARA_FULL_SCRATCH, RC.LANES), dtype=torch.int32,
+                              device=dev)
+        kf_out = torch.empty_like(cyc)
+
+        def kf(lib, n):
+            err = lib.kara_full_launch(P(cyc.data_ptr()), P(kf_out.data_ptr()),
+                                       P(scratch.data_ptr()), I(n), P(segs.data_ptr()),
+                                       I(segs.numel()), P(kbits.data_ptr()), I(kbits.numel()),
+                                       stream())
+            assert err == 0, err
+
+        kf_ms = {}
+        for name in KF_VARIANTS:
+            kf(libs[name], kf_rows)
+            torch.cuda.synchronize()
+            exact = name not in ("kf_noinv", "kf_chain")
+            assert not exact or torch.equal(kf_out, kf_want), (
+                f"{name} disagrees with its plain version")
+            kf_ms[name] = time_ms(lambda: kf(libs[name], kf_rows), 10)
+            four = time_ms(lambda: kf(libs[name], four_rows), 20)
+            note = "rows those of kara_full_plain" if exact else "cut short: timing only"
+            print(f"[kara_full] {name}: {kf_ms[name]:.4f} ms at ({kf_rows}, 12, 128), "
+                  f"{four:.4f} ms at ({four_rows}, 12, 128) ({note})")
+        rest = kf_ms["kf_noinv"]
+        for name in ("kf_tile", "kf_tile4", "kf_tile4_1blk", "kf_warp", "kf_warp4",
+                     "kf_warp4_1blk"):
+            print(f"[kara_full] {name}: the inversion {kf_ms[name] - rest:.4f} ms of "
+                  f"{kf_ms[name]:.4f}; the rest {rest:.4f} ms, the chain alone "
+                  f"{kf_ms['kf_chain']:.4f}")
+
+    if 7 in sections:
+        probe_redesigns(libs, dev)
     print(f"[card] {card}")
     return 0
 

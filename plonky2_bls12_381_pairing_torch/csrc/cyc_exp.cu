@@ -28,10 +28,20 @@
 // (_build_cyc_exp_cond); same operations in the same order, so the same
 // rows. Its plain version is ops/rns/kernels.py cyc_exp_cond_plain.
 //
+// cyc_square_run is the same kernel walking one run of n squarings and no
+// product (n a launch argument), on tiles of RUN_TILE packed rows. It
+// replaces the TPU kernel cyc_square_run (pallas.py, _build_square_run),
+// which keeps a component-major block in VMEM for the run; its plain
+// version is ops/rns/kernels.py cyc_square_run_plain.
+//
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 2, 1024
 // packed rows, |BLS_X|): cyc_exp 0.815-0.823 ms, cyc_exp_cond 0.824-0.844 ms
 // (2.015-2.036 ms in the one-row blocks of rns_common.cuh that it had
 // before, timed alongside it), against a work bound of 0.026 ms.
+// cyc_square_run (kernel_probe.py, queued launches): n = 32 0.354 ms, the
+// six runs of |x| (1, 2, 3, 9, 32, 16) summed 0.740 ms, against 0.854 and
+// 1.710 ms in the one-row blocks of rns_common.cuh it had before
+// (chip_smoke.py, the same call), and a work bound of 0.012 and 0.033 ms.
 
 #include "rns_redc_tc.cuh"
 #include "rns_tower.cuh"
@@ -40,24 +50,32 @@ namespace {
 
 using namespace rns;
 
-// packed rows per block of cyc_exp
+// packed rows per block of cyc_exp and cyc_exp_cond, and of cyc_square_run
+// (2-row tiles 1.2-2.0 % faster than 4-row ones for its runs,
+// kernel_probe.py); a tile of T rows takes 8 / T blocks per SM (64
+// registers a thread)
 constexpr int TILE = RNS_TC_ROWS;
-constexpr int THREADS = TILE * LANES;
+constexpr int RUN_TILE = 2;
 
-// One block per TILE packed rows (the last tile masked); a and out are
-// (rows, 12, 128) int32. The schedule walks the exponent after its leading
-// bit in nsteps steps, each n cyclotomic squarings and then, if flagged, one
-// product with the base: for cyc_exp sched holds (n_squares,
-// multiply_after) pairs; for cyc_exp_cond (LEVELS) one multiply flag per
-// level, each level one squaring.
-template <bool LEVELS>
-__global__ void __launch_bounds__(THREADS, 2)
+// How the kernel walks the exponent after its leading bit.
+enum Walk {
+  SEGMENTS,  // sched: nsteps (n_squares, multiply_after) pairs
+  LEVELS,    // sched: one multiply flag per level, each level one squaring
+  RUN,       // nsteps squarings and no product; sched unused
+};
+
+// One block per T packed rows (the last tile masked); a and out are
+// (rows, 12, 128) int32. Each step of the walk is n cyclotomic squarings
+// and then, if flagged, one product with the base.
+template <Walk WALK, int T>
+__global__ void __launch_bounds__(T * LANES, 8 / T)
     cyc_exp_kernel(const int* __restrict__ a, int* __restrict__ out, int rows,
                    const int* __restrict__ sched, int nsteps) {
-  __shared__ TcSmem<TILE> s;
+  static_assert(T == 2 || T == 4, "a tile of 2 or 4 packed rows");
+  __shared__ TcSmem<T> s;
   __shared__ int bias[2][12][SUB];  // RNS_CYC_BIAS, RNS_MUL_BIAS
   load_tc_tables(s);
-  for (int i = threadIdx.x; i < 12 * SUB; i += THREADS) {
+  for (int i = threadIdx.x; i < 12 * SUB; i += T * LANES) {
     bias[0][i / SUB][i % SUB] = RNS_CYC_BIAS[i / SUB][i % SUB];
     bias[1][i / SUB][i % SUB] = RNS_MUL_BIAS[i / SUB][i % SUB];
   }
@@ -66,16 +84,17 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int lane = threadIdx.x % LANES;
   const int l = lane % SUB;
   const Lane c = load_lane(l);
-  const long long row = static_cast<long long>(blockIdx.x) * TILE + threadIdx.x / LANES;
+  const long long row = static_cast<long long>(blockIdx.x) * T + threadIdx.x / LANES;
   const bool live = row < rows;
   const int* base = a + row * 12 * LANES + lane;
   int acc[12];
 #pragma unroll
   for (int k = 0; k < 12; ++k) acc[k] = live ? base[k * LANES] : 0;
-  for (int g = 0; g < nsteps; ++g) {
-    const int n_sq = LEVELS ? 1 : sched[2 * g];
+  const int steps = WALK == RUN ? 1 : nsteps;
+  for (int g = 0; g < steps; ++g) {
+    const int n_sq = WALK == RUN ? nsteps : WALK == LEVELS ? 1 : sched[2 * g];
     for (int i = 0; i < n_sq; ++i) cyc_square<SUB>(acc, c, s, &bias[0][0][l]);
-    if (sched[LEVELS ? g : 2 * g + 1]) {
+    if (WALK != RUN && sched[WALK == LEVELS ? g : 2 * g + 1]) {
       // the base is read again for each of the few products (from the L2
       // cache): held in registers for the whole exponent it would spill
       int f[12];
@@ -90,12 +109,12 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <bool LEVELS>
+template <Walk WALK, int T>
 int launch(const int* a, int* out, int rows, const int* sched, int nsteps, void* stream) {
   if (rows > 0) {
-    cyc_exp_kernel<LEVELS><<<(rows + TILE - 1) / TILE, THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(a, out, rows, sched,
-                                                                  nsteps);
+    cyc_exp_kernel<WALK, T><<<(rows + T - 1) / T, T * LANES, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a, out, rows, sched,
+                                                                   nsteps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -104,11 +123,17 @@ int launch(const int* a, int* out, int rows, const int* sched, int nsteps, void*
 
 extern "C" int cyc_exp_launch(const int* a, int* out, int rows, const int* segs, int nseg,
                               void* stream) {
-  return launch<false>(a, out, rows, segs, nseg, stream);
+  return launch<SEGMENTS, TILE>(a, out, rows, segs, nseg, stream);
 }
 
 // flags holds one multiply flag per level.
 extern "C" int cyc_exp_cond_launch(const int* a, int* out, int rows, const int* flags,
                                    int nlevels, void* stream) {
-  return launch<true>(a, out, rows, flags, nlevels, stream);
+  return launch<LEVELS, TILE>(a, out, rows, flags, nlevels, stream);
+}
+
+// n Granger-Scott squarings; n = 0 copies the rows.
+extern "C" int cyc_square_run_launch(const int* a, int* out, int rows, int n, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<RUN, RUN_TILE>(a, out, rows, nullptr, n, stream);
 }

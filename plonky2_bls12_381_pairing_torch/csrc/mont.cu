@@ -1,13 +1,15 @@
 // The limb tier's Montgomery kernels: the 48 x 48 limb convolution of up to
 // LIMB_CONV_KMAX operand pairs in one launch, the scan-free Montgomery
-// reduction, and the two fused into one product.
+// reduction, the two fused into one product, and a static power as one
+// chain of those products.
 //
 // Replace the TPU kernels conv, mont_reduce and mont_mul
 // (plonky2_bls12_381_pairing_tpu/ops/pallas/mont.py), which hold 256 rows x
 // 128 lanes per grid step and multiply by the constants p and p' on the
-// matrix unit. Their plain PyTorch versions are conv_plain,
-// mont_reduce_plain and mont_mul_plain (ops/kernels/mont.py); the rows agree
-// bit for bit.
+// matrix unit, and (mont_pow) the JAX package's lax.scan of mont_mul over
+// a static exponent's bits (ops/fp.py pow_static). Their plain PyTorch
+// versions are conv_plain, mont_reduce_plain, mont_mul_plain and
+// mont_pow_plain (ops/kernels/mont.py); the rows agree bit for bit.
 //
 // What bounds them on an H100:
 //   conv moves 2 * 192 bytes in and 380 out per row for 2,304 multiply-adds
@@ -33,9 +35,25 @@
 //   thread, a shift-add pass is a local step and one shuffle), the p and p'
 //   digits staged once per block behind the kernel's only block barrier:
 //   0.041 ms at (2048, 12, 95), 0.109 in the block design before it.
-//   mont_mul keeps the first design, one thread per column, a group of 128
-//   threads per row, four rows per block, and block-wide barriers in every
-//   shift-add pass.
+//   mont_mul (about 7,300 multiply-adds per row) and mont_pow (a chain of
+//   them) are one warp per row on the same two pieces (mul_warp): conv's
+//   runs into the row's columns in the warp's shared memory, each thread's
+//   four columns read back into registers, and mont_reduce_warp on them;
+//   the constants staged behind the only block barrier, as in mont_reduce.
+//   mont_pow keeps its base and its accumulator in the warp's shared
+//   memory for the whole exponent, whose bits after the leading one travel
+//   by value in the parameters: a squaring per bit, then a product with
+//   the base where it is set, the products fp.pow_static launches one by
+//   one, in its order. Its steps depend on each other, so a row's chain is
+//   latency: a product takes about 3,500 cycles alone, 4,900 among the
+//   2048 rows' 15 warps per SM, of which the reduction's two strip
+//   products (m = t p' and m p) a half and conv's runs a sixth. Measured on
+//   an H100 80GB HBM3 at 700 W (kernel_probe.py, queued launches):
+//   mont_mul 0.0068 ms at 2048 rows; mont_pow(p - 2) 1.78 ms at 2048 rows,
+//   0.84 ms for one row (1.4 us per product), against 8.98 ms for its 608
+//   mont_mul launches in the block design mont_mul had before (one thread
+//   per column, 128 per row, block-wide barriers in every shift-add pass:
+//   0.0148 ms a launch; the probe keeps it).
 
 #include "limb_common.cuh"
 
@@ -49,6 +67,11 @@ constexpr int PIECE = LIMB_CONV_PIECE_TERMS;  // 12
 // move either kernel's time by less than 10 %)
 constexpr int CONV_WARPS = 8;
 constexpr int REDUCE_WARPS = 4;
+// warps (rows) per block of mont_mul and mont_pow (kernel_probe.py: 1 to 8
+// move either by less than 5 %; at 2 or more ptxas spills 4 to 8 bytes in
+// mont_pow's chain, at 1 none)
+constexpr int MUL_WARPS = 4;
+constexpr int POW_WARPS = 1;
 
 // The operand pairs of one launch: pair j's rows are a[j] + r * sa[j] and
 // b[j] + r * sb[j] (a stride of 0 broadcasts one row).
@@ -71,27 +94,6 @@ struct alignas(16) ConvScratch {
   int y[Y_LEN];
   int out[OUT_LEN];
 };
-
-// PIECE terms lo .. lo + PIECE - 1 of the 4-column strip at column c:
-// acc[q] += x[i] * y[c + q - i]. lo and c are multiples of 4, so x and y are
-// read four digits at a time: per four terms one 16-byte load of x and one
-// of the next four y digits, for 16 multiply-adds.
-__device__ __forceinline__ void conv_piece(const int* x, const int* y, int c, int lo,
-                                           int (&acc)[4]) {
-  const int4* xv = reinterpret_cast<const int4*>(x + lo);
-  const int* yd = y + c - lo;
-  int4 h = *reinterpret_cast<const int4*>(yd);  // y[d .. d + 3], d = c - lo - 4k
-#pragma unroll
-  for (int k = 0; k < PIECE / 4; ++k) {
-    const int4 u = xv[k];
-    const int4 l = *reinterpret_cast<const int4*>(yd - 4 * k - 4);  // y[d - 4 .. d - 1]
-    acc[0] += u.x * h.x + u.y * l.w + u.z * l.z + u.w * l.y;
-    acc[1] += u.x * h.y + u.y * h.x + u.z * l.w + u.w * l.z;
-    acc[2] += u.x * h.z + u.y * h.y + u.z * h.x + u.w * l.w;
-    acc[3] += u.x * h.w + u.y * h.z + u.z * h.y + u.w * h.x;
-    h = l;
-  }
-}
 
 // acc's four sums added into columns c .. c + 3 of `out`, in the order
 // rotated by r: runs of one strip (r their index in it) add to different
@@ -188,7 +190,7 @@ __global__ void __launch_bounds__(WARP * CONV_WARPS)
       const int c = run[2 * half], lo = run[2 * half + 1];
       if (c >= 0) {
         int acc[4] = {0, 0, 0, 0};
-        conv_piece(s.x, y, c, lo, acc);
+        conv_quads(s.x, y, c, lo, PIECE / 4, acc);
         add_rotated(s.out, c, (lo - max(0, c - NLIMBS)) / PIECE, acc);
       }
     }
@@ -220,31 +222,129 @@ __global__ void __launch_bounds__(WARP * REDUCE_WARPS)
   mont_reduce_warp(x, lane, ws[w], k, npass, out + row * NLIMBS);
 }
 
-// Rows of a block: row = blockIdx.x * GROUPS + threadIdx.y; groups beyond
-// the last row compute on zeros (the barriers are block-wide) and store
-// nothing.
-__global__ void __launch_bounds__(LANES * GROUPS)
+// One warp's product scratch (mont_mul, mont_pow): two operands with 16
+// zeros on either side of their 48 digits (the reach of conv_quads' reads
+// as x and as y), and the 96 columns the runs add into (zero between
+// products).
+constexpr int OP_PAD = 16;
+constexpr int OP_LEN = OP_PAD + NLIMBS + OP_PAD;
+struct alignas(16) MulScratch {
+  WarpScratch ws;
+  int x[OP_LEN];
+  int y[OP_LEN];
+  int out[OUT_LEN];
+};
+
+__device__ __forceinline__ void zero_pads(MulScratch& s, int lane) {
+  if (lane < OP_PAD) {
+    s.x[lane] = s.y[lane] = 0;
+    s.x[OP_PAD + NLIMBS + lane] = s.y[OP_PAD + NLIMBS + lane] = 0;
+  }
+  for (int c = lane; c < OUT_LEN; c += WARP) s.out[c] = 0;
+}
+
+// The Montgomery product of the digits x[0..47] and y[0..47] (padded rows of
+// the warp's scratch) into dst[0..47] (shared or device memory, which may
+// be x or y): conv's runs (`run`: this thread's, from LIMB_CONV_PIECE) add
+// the 95 columns into s.out, each thread reads back its four columns (and
+// zeroes them for the next product), and mont_reduce_warp reduces them with
+// the fused product's first pass count. The warp's stores to dst are
+// visible to it on return.
+__device__ __forceinline__ void mul_warp(const int* x, const int* y, const int (&run)[4],
+                                         int lane, MulScratch& s, const LimbConsts& k,
+                                         int* dst) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int c = run[2 * half], lo = run[2 * half + 1];
+    if (c >= 0) {
+      int acc[4] = {0, 0, 0, 0};
+      conv_quads(x, y, c, lo, PIECE / 4, acc);
+      add_rotated(s.out, c, (lo - max(0, c - NLIMBS)) / PIECE, acc);
+    }
+  }
+  __syncwarp();
+  int cols[4] = {0, 0, 0, 0};
+  if (lane < OUT_LEN / COLS_PER_THREAD) {
+    int4* mine = reinterpret_cast<int4*>(&s.out[COLS_PER_THREAD * lane]);
+    const int4 v = *mine;
+    cols[0] = v.x;
+    cols[1] = v.y;
+    cols[2] = v.z;
+    cols[3] = v.w;
+    *mine = make_int4(0, 0, 0, 0);
+  }
+  mont_reduce_warp(cols, lane, s.ws, k, LIMB_NPASS_MUL, dst);
+  __syncwarp();
+}
+
+__device__ __forceinline__ void load_run(int (&run)[4], int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) run[i] = LIMB_CONV_PIECE[lane][i];
+}
+
+// a, b: (rows, 48) with row strides sa, sb (0 broadcasts one row); out:
+// (rows, 48) dense. One warp per row.
+__global__ void __launch_bounds__(WARP * MUL_WARPS)
     mont_mul_kernel(const int* __restrict__ a, long long sa, const int* __restrict__ b,
                     long long sb, int* __restrict__ out, int rows) {
-  __shared__ int xs[GROUPS][NLIMBS], ys[GROUPS][NLIMBS];
-  __shared__ Scratch sc[GROUPS];
-  const int lane = threadIdx.x, g = threadIdx.y;
-  const long long row = static_cast<long long>(blockIdx.x) * GROUPS + g;
-  const bool live = row < rows;
-  if (lane < NLIMBS) {
-    xs[g][lane] = live ? a[row * sa + lane] : 0;
-    ys[g][lane] = live ? b[row * sb + lane] : 0;
+  __shared__ LimbConsts k;
+  __shared__ MulScratch scratch[MUL_WARPS];
+  load_consts(k, threadIdx.x, blockDim.x);
+  __syncthreads();  // the constants are staged; no block barrier follows
+  const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const long long row = static_cast<long long>(blockIdx.x) * MUL_WARPS + w;
+  if (row >= rows) return;
+  MulScratch& s = scratch[w];
+  int run[4];
+  load_run(run, lane);
+  zero_pads(s, lane);
+  stage_row(fetch_row(a + row * sa, lane), s.x + OP_PAD, lane);
+  stage_row(fetch_row(b + row * sb, lane), s.y + OP_PAD, lane);
+  __syncwarp();
+  mul_warp(s.x + OP_PAD, s.y + OP_PAD, run, lane, s, k, out + row * NLIMBS);
+}
+
+// The bits of a static exponent after its leading one, MSB first: bit i is
+// bit i % 32 of w[i / 32].
+struct PowBits {
+  unsigned w[LIMB_POW_WORDS];
+  int n;
+};
+
+// a: (rows, 48) with row stride sa; out: (rows, 48) dense: a^e for the
+// exponent e whose bits after the leading one are `bits`. One warp per
+// row: the base in s.y, the accumulator in s.x, from the base on.
+__global__ void __launch_bounds__(WARP * POW_WARPS)
+    mont_pow_kernel(const int* __restrict__ a, long long sa,
+                    const __grid_constant__ PowBits bits, int* __restrict__ out, int rows) {
+  __shared__ LimbConsts k;
+  __shared__ MulScratch scratch[POW_WARPS];
+  load_consts(k, threadIdx.x, blockDim.x);
+  __syncthreads();  // the constants are staged; no block barrier follows
+  const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const long long row = static_cast<long long>(blockIdx.x) * POW_WARPS + w;
+  if (row >= rows) return;
+  MulScratch& s = scratch[w];
+  int run[4];
+  load_run(run, lane);
+  zero_pads(s, lane);
+  int* const acc = s.x + OP_PAD;
+  int* const base = s.y + OP_PAD;
+  const RowPart row_a = fetch_row(a + row * sa, lane);
+  stage_row(row_a, acc, lane);
+  stage_row(row_a, base, lane);
+  __syncwarp();
+  for (int i = 0; i < bits.n; ++i) {
+    mul_warp(acc, acc, run, lane, s, k, acc);
+    if ((bits.w[i / 32] >> (i % 32)) & 1u) mul_warp(acc, base, run, lane, s, k, acc);
   }
-  __syncthreads();
-  const int col = conv_column(xs[g], ys[g], lane);
-  const int res = mont_reduce_lanes(col, lane, sc[g], LIMB_NPASS_MUL);
-  if (live && lane < NLIMBS) out[row * NLIMBS + lane] = res;
+  int* dst = out + row * NLIMBS;
+  for (int l = lane; l < NLIMBS; l += WARP) dst[l] = acc[l];
 }
 
 inline int tiles(long long rows, int per_block) {
   return static_cast<int>((rows + per_block - 1) / per_block);
 }
-
 
 }  // namespace
 
@@ -274,8 +374,20 @@ extern "C" int limb_mont_reduce_launch(const int* cols, long long stride, int nc
 extern "C" int limb_mont_mul_launch(const int* a, long long sa, const int* b, long long sb,
                                     int* out, int rows, void* stream) {
   if (rows > 0) {
-    mont_mul_kernel<<<tiles(rows, GROUPS), dim3(LANES, GROUPS), 0,
+    mont_mul_kernel<<<tiles(rows, MUL_WARPS), WARP * MUL_WARPS, 0,
                       static_cast<cudaStream_t>(stream)>>>(a, sa, b, sb, out, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bits: a host PowBits, copied into the launch's parameters.
+extern "C" int limb_mont_pow_launch(const int* a, long long sa, const void* bits, int* out,
+                                    int rows, void* stream) {
+  const PowBits& e = *static_cast<const PowBits*>(bits);
+  if (e.n < 0 || e.n > 32 * LIMB_POW_WORDS) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0) {
+    mont_pow_kernel<<<tiles(rows, POW_WARPS), WARP * POW_WARPS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(a, sa, e, out, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,10 +26,12 @@ of the same name gives on the CPU.
 
 Strategy (set_strategy), one switch for the tier:
   "auto" / "kernels"  on a CUDA tensor conv / conv_many (48 x 48),
-                      mont_reduce (<= 95 columns) and mont_mul launch the
-                      CUDA kernels of ops/kernels/mont.py; on a CPU tensor
-                      the same functions run their plain versions here. The
-                      fused mont_mul gives the rows of mont_reduce(conv(a, b)).
+                      mont_reduce (<= 95 columns), mont_mul and pow_static
+                      (as one mont_pow) launch the CUDA kernels of
+                      ops/kernels/mont.py; on a CPU tensor the same
+                      functions run their plain versions here. The fused
+                      mont_mul gives the rows of mont_reduce(conv(a, b)),
+                      mont_pow those of pow_static's chain of mont_mul.
   "plain"             plain PyTorch on either device.
   "fused"             additionally fq12.mul / square / mul_by_014 /
                       cyclotomic_square run the tower kernels of
@@ -79,8 +81,9 @@ def get_strategy() -> str:
 
 
 def _use_kernels(t: torch.Tensor) -> bool:
-    """The conv / mont_reduce / mont_mul wrappers take every tensor that is
-    not on the CPU (they launch on CUDA and refuse any other device)."""
+    """The conv / mont_reduce / mont_mul / mont_pow wrappers take every
+    tensor that is not on the CPU (they launch on CUDA and refuse any other
+    device)."""
     return _STRATEGY != "plain" and t.device.type != "cpu"
 
 
@@ -696,9 +699,14 @@ def is_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent by MSB-first square-and-multiply over the static bits.
-    Montgomery in, Montgomery out."""
+    Montgomery in, Montgomery out. On a CUDA tensor the whole chain of
+    mont_mul products is one mont_pow kernel, with the same rows."""
     if exponent == 0:
         return one_mont(a.shape[:-1], a.device)
+    if _use_kernels(a):
+        from .kernels import mont as _km
+
+        return _km.mont_pow(a, exponent)
     acc = a  # the leading 1
     for i in range(exponent.bit_length() - 2, -1, -1):
         acc = mont_mul(acc, acc)

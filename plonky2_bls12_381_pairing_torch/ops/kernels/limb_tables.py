@@ -12,6 +12,7 @@ from here, read off the port's plain formulas:
     fused product (ops/kernels/mont.py);
   * the convolution kernel's work split: each thread's two runs of terms of
     4-column strips (`conv_pieces`) and the most pairs of one launch;
+  * the 32-bit words of the longest exponent mont_pow takes;
   * per tower formula (ops/kernels/tower.py `formula`): the operand terms,
     the output combinations (as lists of their nonzero terms),
     the product count and the first pass count of its merged reduction.
@@ -119,6 +120,7 @@ def defines() -> dict[str, int]:
         "LIMB_NPASS_MUL": mont.first_pass_count(0, mont.MUL_COL_HI),
         "LIMB_CONV_KMAX": mont.K_MAX,
         "LIMB_CONV_PIECE_TERMS": CONV_PIECE_TERMS,
+        "LIMB_POW_WORDS": mont.POW_WORDS,
         "LIMB_TOWER_NSLOTS": tower.NSLOTS,
         "LIMB_TOWER_SLOT_B": tower.SLOT_B,
         "LIMB_TOWER_SLOT_NEGC": tower.SLOT_NEGC,

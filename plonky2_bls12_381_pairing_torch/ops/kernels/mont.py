@@ -4,6 +4,8 @@ hand-written CUDA kernels, their plain PyTorch versions and their wrappers.
   conv_many(pairs), conv(a, b)     <- pallas/mont.py conv         (csrc/mont.cu)
   mont_reduce(cols, col_lo, col_hi) <- pallas/mont.py mont_reduce  (csrc/mont.cu)
   mont_mul(a, b)                   <- pallas/mont.py mont_mul     (csrc/mont.cu)
+  mont_pow(a, exponent)            <- fp.py pow_static, a lax.scan of
+                                      pallas/mont.py mont_mul      (csrc/mont.cu)
 
 conv_many convolves up to K_MAX operand pairs in one launch (a tower op's
 independent products); conv(a, b) is conv_many([(a, b)]).
@@ -15,6 +17,8 @@ plain functions of ops/fp.py (conv_cols, mont_reduce_scanfree) and call no
 dispatching function, so a plain run on a card launches none of these
 kernels. mont_mul's rows are mont_reduce(conv(a, b))'s: the fused kernel
 passes the reduction the bounds of a product of two stored operands.
+mont_pow's rows are those of fp.pow_static's chain of mont_mul calls, which
+its kernel runs in one launch.
 
 The kernels are built and bound by ops/cuda_build.py.
 """
@@ -35,6 +39,9 @@ NCOLS = 2 * NLIMBS - 1  # 95 columns of a 48 x 48 convolution
 #: most operand pairs of one conv launch: fq12.mul's group is 63 products
 #: (three fq6.mul_wide of 9 Karatsuba and 12 schoolbook products)
 K_MAX = 64
+#: 32-bit words of the longest exponent mont_pow takes, after its leading
+#: bit (p - 2 has 380 such bits)
+POW_WORDS = 16
 #: warps an H100 holds at once (132 SMs x 64), and the most rows a conv
 #: warp computes in turn
 _CARD_WARPS = 132 * 64
@@ -56,17 +63,26 @@ class _ConvPairs(ctypes.Structure):
                 ("sa", STRIDE * K_MAX), ("sb", STRIDE * K_MAX)]
 
 
+class _PowBits(ctypes.Structure):
+    """csrc/mont.cu's PowBits: an exponent's bits after its leading one,
+    MSB first (bit i is bit i % 32 of word i // 32), passed by value in the
+    launch's parameters."""
+
+    _fields_ = [("w", ctypes.c_uint32 * POW_WORDS), ("n", INT)]
+
+
 #: every entry ends in the output pointer, the row count and the stream
 #: (conv: and the rows per warp); an operand with a row stride is (PTR,
 #: STRIDE); conv takes its pairs (a _ConvPairs) and their count;
 #: mont_reduce also takes its column count and the count of its first
-#: shift-add passes
+#: shift-add passes; mont_pow its exponent's bits (a _PowBits)
 _KERNELS = {
     "conv": ("mont.cu", "limb_conv_launch", [PTR, INT, PTR, INT, INT, PTR]),
     "mont_reduce": ("mont.cu", "limb_mont_reduce_launch",
                     [PTR, STRIDE, INT, INT, PTR, INT, PTR]),
     "mont_mul": ("mont.cu", "limb_mont_mul_launch",
                  [PTR, STRIDE] * 2 + [PTR, INT, PTR]),
+    "mont_pow": ("mont.cu", "limb_mont_pow_launch", [PTR, STRIDE, PTR, PTR, INT, PTR]),
 }
 
 #: Kernel launches per wrapper since the last reset_launches().
@@ -121,6 +137,19 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return fp.mont_reduce_scanfree(fp.conv_cols(a, b), 0, MUL_COL_HI)
 
 
+def mont_pow_plain(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """Stored (..., 48) -> stored (..., 48): a^exponent (Montgomery in and
+    out), fp.pow_static's MSB-first square-and-multiply on mont_mul_plain."""
+    if exponent == 0:
+        return fp.one_mont(a.shape[:-1], a.device)
+    acc = a  # the leading 1
+    for i in range(exponent.bit_length() - 2, -1, -1):
+        acc = mont_mul_plain(acc, acc)
+        if (exponent >> i) & 1:
+            acc = mont_mul_plain(acc, a)
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -145,6 +174,30 @@ def _mont_mul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bv, sb = _rows48(b, batch)  # both alive until the launch is enqueued
     out = torch.empty((*batch, NLIMBS), dtype=torch.int32, device=a.device)
     cuda_build.call("mont_mul", a.device, av.data_ptr(), sa, bv.data_ptr(), sb,
+                    out.data_ptr(), math.prod(batch))
+    return out
+
+
+def pow_bits(exponent: int) -> _PowBits:
+    """The exponent's bits after its leading one, as the kernel takes them."""
+    n = exponent.bit_length() - 1
+    if n > 32 * POW_WORDS:
+        raise ValueError(f"exponents of at most {32 * POW_WORDS + 1} bits, got {n + 1}")
+    bits = _PowBits()
+    bits.n = n
+    for j in range(n):
+        bits.w[j // 32] |= ((exponent >> (n - 1 - j)) & 1) << (j % 32)
+    return bits
+
+
+def _mont_pow_kernel(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """Launch the mont_pow kernel (exponent >= 1): the rows read in place
+    through one row stride where the batch axes merge, else copied."""
+    bits = pow_bits(exponent)
+    batch = tuple(a.shape[:-1])
+    av, sa = _rows48(a, batch)
+    out = torch.empty((*batch, NLIMBS), dtype=torch.int32, device=a.device)
+    cuda_build.call("mont_pow", a.device, av.data_ptr(), sa, ctypes.addressof(bits),
                     out.data_ptr(), math.prod(batch))
     return out
 
@@ -205,6 +258,18 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return mont_mul_plain(a, b)
     return _mont_mul_kernel(a, b)
+
+
+def mont_pow(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent of stored rows (..., 48) for a static exponent >= 0: on the
+    card one launch for the whole chain (exponent 0 gives the one row, on
+    the host)."""
+    exponent = int(exponent)
+    if exponent < 0:
+        raise ValueError("the exponent must be >= 0")
+    if a.device.type == "cpu" or exponent == 0:
+        return mont_pow_plain(a, exponent)
+    return _mont_pow_kernel(a, exponent)
 
 
 def mont_reduce(cols: torch.Tensor, col_lo: int = 0,

@@ -4,9 +4,8 @@ ops/rns/pallas.py on the pairing's paths) and their plain PyTorch versions.
   cyc_exp(a, segments)            <- pallas.cyc_exp_run      (csrc/cyc_exp.cu)
   cyc_exp_cond(a, segments)       <- pallas.cyc_exp_run in its one-loop build,
                                      _build_cyc_exp_cond     (csrc/cyc_exp.cu)
-  cyc_square_run(a, n), kara_square_run(c, n)
-                                  <- pallas.cyc_square_run, kara_square_run
-                                                             (csrc/square_run.cu)
+  cyc_square_run(a, n)            <- pallas.cyc_square_run   (csrc/cyc_exp.cu)
+  kara_square_run(c, n)           <- pallas.kara_square_run  (csrc/square_run.cu)
   kara_exp(c, segments)           <- pallas.kara_exp_run     (csrc/kara_exp.cu)
   kara_full(a, segments)          <- pallas.kara_full_run    (csrc/kara_full.cu)
   pow_static_fused(a, exponent)   <- pallas.pow_static_fused (csrc/pow_static.cu)
@@ -65,7 +64,7 @@ _KERNELS = {
                 [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
     "cyc_exp_cond": ("cyc_exp.cu", "cyc_exp_cond_launch",
                      [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
-    "cyc_square_run": ("square_run.cu", "cyc_square_run_launch",
+    "cyc_square_run": ("cyc_exp.cu", "cyc_square_run_launch",
                        [_PTR, _PTR, _INT, _INT, _PTR]),
     "kara_square_run": ("square_run.cu", "kara_square_run_launch",
                         [_PTR, _PTR, _INT, _INT, _PTR]),
@@ -356,6 +355,12 @@ def _square_run(name: str, plain, a: torch.Tensor, n: int, ncomp: int) -> torch.
         raise ValueError("the number of squarings must be >= 0")
     if a.device.type == "cpu":
         return plain(a, n)
+    return _square_run_kernel(name, a, n, ncomp)
+
+
+def _square_run_kernel(name: str, a: torch.Tensor, n: int, ncomp: int) -> torch.Tensor:
+    """A square run's launch on rows a (..., ncomp, LANES): cyc_square_run
+    on tiles of packed rows, kara_square_run one packed row per block."""
     _check(a, (ncomp, LANES))
     out = torch.empty_like(a)
     _call(name, a.device, a.data_ptr(), out.data_ptr(), a.numel() // (ncomp * LANES), n)
@@ -364,7 +369,8 @@ def _square_run(name: str, plain, a: torch.Tensor, n: int, ncomp: int) -> torch.
 
 def cyc_square_run(a: torch.Tensor, n: int) -> torch.Tensor:
     """n Granger-Scott squarings of cyclotomic Fq12 rows a (..., 12, LANES)
-    int32, the state on chip for the run."""
+    int32, the state on chip for the run (cyc_exp's kernel on tiles of
+    packed rows)."""
     return _square_run("cyc_square_run", cyc_square_run_plain, a, n, 12)
 
 

@@ -105,8 +105,9 @@ def _code(source: str) -> str:
 
 @pytest.mark.parametrize("source", ["cyc_exp.cu", "kara_full.cu"])
 def test_exp_kernels_run_on_the_tensor_core_tile(source):
-    """One block per tile of packed rows on rns_redc_tc.cuh's redc; none of
+    """One block per tile of packed rows on rns_redc_tc.cuh's redc (cyc_exp.cu:
+    a tile of T rows, the template's, for its three walks); none of
     rns_common.cuh's one-row blocks (Smem) is left."""
     code = _code(source)
-    assert "TcSmem<TILE>" in code and re.search(r"constexpr int TILE = \w+;", code)
+    assert re.search(r"TcSmem<T(ILE)?>", code) and re.search(r"constexpr int TILE = \w+;", code)
     assert not re.search(r"\bSmem<", code) and "load_tables(" not in code

@@ -211,14 +211,16 @@ def test_cpu_wrappers_run_plain_versions():
                        mont.mont_reduce_plain(w.cols, w.col_lo, w.col_hi))
     assert torch.equal(fp.mont_reduce(w), mont.mont_reduce_plain(w.cols, w.col_lo, w.col_hi))
     assert torch.equal(fp.mont_mul(a, b), mont.mont_mul_plain(a, b))
-    assert set(mont.launches) == {"conv", "mont_reduce", "mont_mul"}
+    assert torch.equal(mont.mont_pow(a, 0xD201), mont.mont_pow_plain(a, 0xD201))
+    assert torch.equal(fp.pow_static(a, 0xD201), mont.mont_pow_plain(a, 0xD201))
+    assert set(mont.launches) == {"conv", "mont_reduce", "mont_mul", "mont_pow"}
     assert set(tower.launches) == {"limb_fq12_mul", "limb_fq12_square",
                                    "limb_fq12_mul_by_014", "limb_fq12_cyclotomic_square"}
     assert all(n == 0 for n in mont.launches.values())
     # both tiers' counters are reported together
     total = cuda_build.all_launches()
     assert set(total) == {*mont.launches, *tower.launches, *rns_kernels.launches}
-    assert len(total) == 22  # 15 RNS kernels, 7 limb kernels
+    assert len(total) == 23  # 15 RNS kernels, 8 limb kernels
     with pytest.raises(ValueError):
         mont.mont_reduce(torch.zeros((1, 96), dtype=torch.int32))
     with pytest.raises(ValueError):
@@ -233,6 +235,7 @@ def test_wrappers_refuse_other_devices():
     f = torch.empty((2, 12, 48), dtype=torch.int32, device="meta")
     d = torch.empty((2, 6, 48), dtype=torch.int32, device="meta")
     for call in (lambda: mont.conv(row, row), lambda: mont.mont_mul(row, row),
+                 lambda: mont.mont_pow(row, 3), lambda: fp.pow_static(row, 3),
                  lambda: mont.mont_reduce(cols), lambda: fp.mont_mul(row, row),
                  lambda: fp.conv(row, row), lambda: tower.fq12_mul(f, f),
                  lambda: tower.fq12_square(f), lambda: tower.fq12_mul_by_014(f, d),
@@ -395,7 +398,7 @@ def test_mont_mul_kernel_matches_plain(cuda):
     assert torch.equal(o2, mont.mont_mul_plain(o1, o1))
     w = fp.conv(o1, o1)
     assert torch.equal(o2, mont.mont_reduce(w.cols, w.col_lo, w.col_hi))
-    assert mont.launches == {"conv": 1, "mont_reduce": 1, "mont_mul": 2}
+    assert mont.launches == {"conv": 1, "mont_reduce": 1, "mont_mul": 2, "mont_pow": 0}
     assert torch.equal(fp.inv(a[8:12]), fp.pow_static(a[8:12].cpu(), rm.P - 2).to(cuda))
     fp.set_strategy("plain")
     try:

@@ -143,6 +143,6 @@ def test_warp_kernels_take_no_block_barrier_in_their_loops():
     last = tower_src.rindex("__syncthreads();") + len("__syncthreads();")
     stage4 = _body("{" + tower_src[last:], "{")
     assert re.search(r"mont_reduce_warp\(", stage4) and "mont_reduce_lanes" not in tower_src
-    # mont.cu keeps the block-wide reduction
-    assert "mont_reduce_lanes(" in _code("mont.cu")
+    # the block-wide reduction is gone: mont.cu's kernels are warp kernels
+    assert "mont_reduce_lanes" not in _code("mont.cu") + common
 
