@@ -5,8 +5,8 @@ on one CUDA card and hold them to their references.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from csrc/ and report nvcc's resource use; for
-     the kernels on the tensor-core REDC (cyc_exp.cu, kara_full.cu,
-     tower_ops.cu, miller.cu) and the warp kernels (pow_static.cu,
+     the kernels on the tensor-core REDC (cyc_exp.cu, kara_exp.cu,
+     kara_full.cu, tower_ops.cu, miller.cu) and the warp kernels (pow_static.cu,
      limb_tower.cu, mont.cu) each kernel's registers, shared memory and
      spills (none allowed, but in kara_full.cu: reported), and the IMMA
      instructions in the tensor-core sources' SASS;
@@ -21,7 +21,8 @@ Phases (any failure exits non-zero; nothing is caught):
      mont_mul with stride-0 operands;
      pow_static's time per dependent step against its latency model, and
      mont_pow's for one row and for 2048, beside the 608 mont_mul launches
-     of the chain it replaces);
+     of the chain it replaces; mont_pow also for a 600-bit exponent, two
+     launches);
      time both,
      count the kernel's bound from the inputs (the REDC base extensions at
      the tensor cores' u8 rate, and at the int32 rate beside it), and time
@@ -469,7 +470,7 @@ def mark(label: str) -> None:
 
 
 #: the sources whose kernels run the tensor-core REDC (csrc/rns_redc_tc.cuh)
-TC_SOURCES = ("cyc_exp.cu", "kara_full.cu", "tower_ops.cu", "miller.cu")
+TC_SOURCES = ("cyc_exp.cu", "kara_exp.cu", "kara_full.cu", "tower_ops.cu", "miller.cu")
 #: kara_full's decompression and products spill a few words at the 64
 #: registers of four 256-thread blocks per SM (PERF.md): reported, not held
 #: to zero
@@ -485,6 +486,12 @@ ODD_ROWS = (1, 3, 5, 127)
 #: "karabina_runs"
 RUN_LENGTHS = {"cyc_square_run": tuple(n for n, _ in _GS_SEGMENTS),
                "kara_square_run": tuple(_KARA_SEGMENTS)}
+#: the kernels on the tensor-core tile that phase 2 also runs at ragged
+#: tile counts
+RAGGED = ("cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp", "kara_full")
+#: an exponent longer than one mont_pow launch takes (513 bits): 600 bits
+LONG_EXPONENT = (1 << 599) | int.from_bytes(
+    np.random.default_rng(600).bytes(75), "little") % (1 << 599)
 
 
 def kernel_name(mangled: str) -> tuple[str, int]:
@@ -741,7 +748,7 @@ def main() -> int:
         # representation (and the runs of |x| the paths launch), the
         # Karabina chain, the whole Karabina exponentiation (with the
         # identity in a whole row and in one slot: the g2 == 0 branch and a
-        # zero norm); the two tensor-core kernels also at ragged tile counts
+        # zero norm); the tensor-core kernels also at ragged tile counts
         n_run = 32
         elements = RC.PACK * rows
         numel = cyc_in.numel()
@@ -758,7 +765,7 @@ def main() -> int:
             "cyc_square_run": ("cyc_exp.cu", 339, kernels.cyc_square_run,
                                kernels.cyc_square_run_plain, (cyc_in, n_run),
                                bound_ms(2 * numel * 4, run_ops["cyc_square_run"](n_run))),
-            "kara_square_run": ("square_run.cu", 346, kernels.kara_square_run,
+            "kara_square_run": ("kara_exp.cu", 346, kernels.kara_square_run,
                                 kernels.kara_square_run_plain, (c_in, n_run),
                                 bound_ms(2 * c_in.numel() * 4,
                                          run_ops["kara_square_run"](n_run))),
@@ -773,7 +780,7 @@ def main() -> int:
         for name, (source, line, wrapper, plain, args, bound) in exp_cases.items():
             got = wrapper(*args)
             err = check(name, got, plain(*args), f"{tuple(args[0].shape)}, {args[1]}:")
-            if name in ("cyc_exp_cond", "cyc_square_run", "kara_full"):
+            if name in RAGGED:
                 for n in ragged_rows(rows):
                     cut = (args[0][:n], args[1])
                     err = max(err, check(name, wrapper(*cut), plain(*cut), f"rows {n}:"))
@@ -1149,6 +1156,15 @@ def main() -> int:
         pw_err = max(pw_err, check("mont_pow", lmont.mont_pow(pw, 0xD201),
                                    lmont.mont_pow_plain(pw, 0xD201),
                                    f"{tuple(pw.shape)} e=0xD201"))
+        # an exponent longer than one launch takes: one launch per piece of
+        # 32 * POW_WORDS bits, each from the one before's output
+        before = lmont.launches["mont_pow"]
+        pw_err = max(pw_err, check("mont_pow", lmont.mont_pow(pw, LONG_EXPONENT),
+                                   lmont.mont_pow_plain(pw, LONG_EXPONENT),
+                                   f"{tuple(pw.shape)} a 600-bit exponent:"))
+        pieces = lmont.launches["mont_pow"] - before
+        print(f"[mont_pow] a 600-bit exponent in {pieces} launches")
+        assert pieces == 2, pieces
         # what it replaces: fp.pow_static's chain as 608 mont_mul launches
         # (made once, called through the bound entry: two chains queued
         # behind a held stream)

@@ -11,7 +11,7 @@ embedded below. Every kernel it times is held to its plain version.
 
   1. pow_static before and after the warp design, timed the same way (20
      queued launches between two events): the block design (one 128-thread
-     block per packed row, rns_common.cuh's block-wide redc) and
+     block per packed row, a block-wide redc, embedded below) and
      csrc/pow_static.cu, at the path's shape (128 packed rows) and for one
      row, for p - 2 (608 dependent steps).
   2. a pow_static step split by clock64() stamps on the first element's
@@ -51,6 +51,10 @@ embedded below. Every kernel it times is held to its plain version.
      and for row 0 of 2048; cyc_square_run (csrc/cyc_exp.cu) on tiles of 2 packed
      rows (four blocks per SM) and of 4 (two), at n = 32 and over the six
      runs of |x| at 1024 packed rows.
+  8. csrc/kara_exp.cu's two walks of the Karabina chain on tiles of 2 packed
+     rows (four blocks per SM) and of 4 (two) at 1024 packed rows: kara_exp
+     with |BLS_X|'s six snapshots, kara_square_run at n = 32 and over the
+     six runs of |x|.
 Each design is timed over queued launches behind a held stream and held to
 its plain version. Prints the card's name and power limit first and last.
 
@@ -87,12 +91,109 @@ PHASES = ("product", "step 1: sigma", "step 2: extension to B, alpha",
           "step 3: qhat, sigma'", "step 4: extension to A, beta", "last Barrett")
 
 # The block design: block_pow_kernel as csrc/pow_static.cu had it (one
-# block of 128 threads per packed row, one redc<1> of rns_common.cuh per
-# step), and block_stamped_kernel, the same REDC written out with a stamp
-# after each phase.
+# block of 128 threads per packed row, one redc<1> per step: the one-row
+# blocks' block-wide REDC, which the RNS kernels ran on before the
+# tensor-core tile), and block_stamped_kernel, the same REDC written out
+# with a stamp after each phase.
 BLOCK_POW = r"""
 #include "rns_common.cuh"
 using namespace rns;
+
+// Shared memory of one block. t1/t2 hold the base-extension block rows that
+// can be nonzero (T1 from base-A rows, T2 from base-B rows); buf carries one
+// value per lane for the cross-lane sums; fix carries each slot's alpha or
+// beta (the value of the sum at the slot's ALPHA_LANE). KS is the largest
+// number of stacked reductions the block runs on it.
+template <int KS>
+struct Smem {
+  int t1[NCH * SUB];
+  int t2[NCH * SUB];
+  int buf[KS * LANES];
+  int fix[KS * PACK];
+};
+
+template <int KS>
+__device__ __forceinline__ void load_tables(Smem<KS>& s) {
+  for (int i = threadIdx.x; i < NCH * SUB; i += blockDim.x) {
+    s.t1[i] = RNS_T1A[i / SUB][i % SUB];
+    s.t2[i] = RNS_T2B[i / SUB][i % SUB];
+  }
+}
+
+// K stacked reductions: x[k] holds the lane's residue of X_k (value in
+// [0, MA*p)); on return, the canonical residue of the stored element
+// X_k * MA^-1 + q p (fp.redc, steps 1-4). Every thread of the block must call
+// it: it synchronises four times. Reductions of any K may follow one
+// another on one buffer: each shared word is rewritten only after a barrier
+// that follows its last read.
+template <int K, int KS>
+__device__ __forceinline__ void redc(int (&x)[K], const Lane& c, Smem<KS>& s) {
+  static_assert(K <= KS, "the shared buffer is too small for this stack");
+  const int lane = threadIdx.x;
+  const int slot = lane / SUB;
+  const int l = lane % SUB;
+  const int base = slot * SUB;
+  const bool alpha_lane = l == RNS_ALPHA_LANE;
+
+  // step 1: sigma_i = X * (-p^-1) * (MA/a_i)^-1 mod a_i (zero off base A)
+#pragma unroll
+  for (int k = 0; k < K; ++k) s.buf[k * LANES + lane] = mul_m(x[k], c.c_sigma, c);
+  __syncthreads();
+
+  // step 2: extend q to base B + r: a dot product over the slot's base-A
+  // sigmas. Each term is below 2^26 and there are 31, so the int32 sum is
+  // exact (it equals the plain version's three-plane matmul). The sum at
+  // ALPHA_LANE is the Kawamura fixed-point alpha.
+  int q[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int acc = 0;
+    if (!c.is_a) {
+      const int* sig = &s.buf[k * LANES + base + RNS_A_LO];
+#pragma unroll 8
+      for (int i = 0; i < NCH; ++i) acc += sig[i] * s.t1[i * SUB + l];
+    }
+    q[k] = acc;
+    if (alpha_lane) s.fix[k * PACK + slot] = acc >> RNS_ALPHA_T;
+  }
+  __syncthreads();
+
+  // step 3: qhat = s - alpha * (MA mod m); sigma'_j = r_j (MB/b_j)^-1 mod b_j
+  // straight from (X, qhat) with folded constants (zero off base B)
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    q[k] = barrett(q[k] - s.fix[k * PACK + slot] * c.c_mamod, c);
+    s.buf[k * LANES + lane] =
+        barrett(x[k] * c.c_mainv_mbinv + q[k] * c.c_pmainv_mbinv, c);
+  }
+  __syncthreads();
+
+  // step 4: extend r back to base A; the sum at ALPHA_LANE, rounded, is the
+  // exact wrap count beta
+  int s2[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int acc = 0;
+    if (c.is_a || alpha_lane) {
+      const int* sig = &s.buf[k * LANES + base + RNS_B_LO];
+#pragma unroll 8
+      for (int j = 0; j < NCH; ++j) acc += sig[j] * s.t2[j * SUB + l];
+    }
+    s2[k] = acc;
+    if (alpha_lane) s.fix[k * PACK + slot] = (acc + (1 << (RNS_BETA_T - 1))) >> RNS_BETA_T;
+  }
+  __syncthreads();
+
+  // base A takes the back-extended value, base B + r takes
+  // r = (X + qhat p) MA^-1
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int pre = c.is_a ? s2[k] - s.fix[k * PACK + slot] * c.c_mbmod
+                           : x[k] * c.c_mainv + q[k] * c.c_pmainv;
+    x[k] = barrett(pre, c);
+  }
+}
+
 
 __global__ void __launch_bounds__(LANES)
     block_pow_kernel(const int* __restrict__ a, int* __restrict__ out,
@@ -593,7 +694,7 @@ MONT_STAMP_EDITS = [
     ("  mont_reduce_warp(cols, lane, s.ws, k, LIMB_NPASS_MUL, dst);\n  __syncwarp();\n",
      "  STAMP(1)\n  mont_reduce_warp(cols, lane, s.ws, k, LIMB_NPASS_MUL, dst);\n"
      "  __syncwarp();\n  STAMP(7)\n", 1),
-    _after("  stage_row(row_a, base, lane);\n  __syncwarp();\n",
+    _after("  stage_row(fetch_row(a + row * sa, lane), base, lane);\n  __syncwarp();\n",
            "  if (blockIdx.x == 0 && threadIdx.x == 0) stamp_last = clock64();\n"),
 ]
 
@@ -636,6 +737,17 @@ def run_tile_edits(tile: int) -> list[tuple[str, str, int]]:
     """cyc_exp.cu with cyc_square_run on tiles of `tile` packed rows (8 /
     tile blocks per SM)."""
     return [constant_edit("cyc_exp.cu", "RUN_TILE", tile)]
+
+
+def cyclotomic(rng: np.random.Generator, rows: int, dev: torch.device) -> torch.Tensor:
+    """(rows, 12, 128) random elements of the cyclotomic subgroup, as the
+    final exponentiation's easy part leaves them."""
+    ints = np.empty((2 * rows, 12), dtype=object)
+    for idx in np.ndindex(ints.shape):
+        ints[idx] = int.from_bytes(rng.bytes(48), "little") % rm.P
+    f = torch.from_numpy(fp.encode(ints)).to(dev)
+    t0 = tower.mul(tower.conjugate(f), tower.inv(f))
+    return tower.mul(tower.frobenius_pow(t0, 2), t0).contiguous()
 
 
 def edited(src: Path, edits: list[tuple[str, str, int]]) -> str:
@@ -740,8 +852,9 @@ def probe_redesigns(libs: dict, dev: torch.device) -> None:
         return src
 
     def pow_run(lib, n):
-        err = lib.limb_mont_pow_launch(P(a.data_ptr()), S(48), P(ctypes.addressof(bits)),
-                                       P(out.data_ptr()), I(n), stream())
+        err = lib.limb_mont_pow_launch(P(a.data_ptr()), S(48), P(a.data_ptr()), S(48),
+                                       P(ctypes.addressof(bits)), P(out.data_ptr()), I(n),
+                                       stream())
         assert err == 0, err
 
     for name, lib in (("block design", libs["mont_mul_block"]),
@@ -812,12 +925,7 @@ def probe_redesigns(libs: dict, dev: torch.device) -> None:
 
     # cyc_square_run's tiles at the path's shape
     run_rows = 1024
-    ints = np.empty((2 * run_rows, 12), dtype=object)
-    for idx in np.ndindex(ints.shape):
-        ints[idx] = int.from_bytes(rng.bytes(48), "little") % rm.P
-    f = torch.from_numpy(fp.encode(ints)).to(dev)
-    t0 = tower.mul(tower.conjugate(f), tower.inv(f))
-    cyc = tower.mul(tower.frobenius_pow(t0, 2), t0).contiguous()
+    cyc = cyclotomic(rng, run_rows, dev)
     cyc_out = torch.empty_like(cyc)
     lengths = tuple(n for n, _ in _GS_SEGMENTS)
     wants = {n: kernels.cyc_square_run_plain(cyc, n) for n in set(lengths) | {32}}
@@ -841,11 +949,56 @@ def probe_redesigns(libs: dict, dev: torch.device) -> None:
               + f" ms, sum {sum(times[n] for n in lengths):.4f} ms")
 
 
+def probe_karabina_tiles(libs: dict, dev: torch.device) -> None:
+    """Section 8: kara_exp.cu's two walks on 2- and 4-row tiles at the
+    paths' shape, each held to its plain version."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = lambda: P(torch.cuda.current_stream().cuda_stream)
+    rows = 1024
+    cyc = cyclotomic(np.random.default_rng(8), rows, dev)
+    cyc[1] = tower.one((), dev)  # a zero compressed state
+    c = tower.compress_cyclotomic(cyc).contiguous()
+    segs = torch.tensor(_KARA_SEGMENTS, dtype=torch.int32, device=dev)
+    snaps = torch.empty((len(_KARA_SEGMENTS), *c.shape), dtype=torch.int32, device=dev)
+    run_out = torch.empty_like(c)
+    snaps_want = kernels.kara_exp_plain(c, _KARA_SEGMENTS)
+    lengths = tuple(_KARA_SEGMENTS)
+    wants = {n: kernels.kara_square_run_plain(c, n) for n in set(lengths) | {32}}
+    for tile in (2, 4):
+        lib = libs[f"kara_tile{tile}"]
+
+        def chain(lib=lib):
+            err = lib.kara_exp_launch(P(c.data_ptr()), P(snaps.data_ptr()), I(rows),
+                                      P(segs.data_ptr()), I(segs.numel()), stream())
+            assert err == 0, err
+
+        def run(n, lib=lib):
+            err = lib.kara_square_run_launch(P(c.data_ptr()), P(run_out.data_ptr()), I(rows),
+                                             I(n), stream())
+            assert err == 0, err
+
+        snaps.zero_()
+        chain()
+        torch.cuda.synchronize()
+        assert torch.equal(snaps, snaps_want), f"kara_exp on {tile}-row tiles"
+        times = {}
+        for n in sorted(wants):
+            run(n)
+            torch.cuda.synchronize()
+            assert torch.equal(run_out, wants[n]), f"kara_square_run on {tile}-row tiles"
+            times[n] = time_ms(lambda n=n: run(n), 10)
+        print(f"[kara_exp] tiles of {tile} packed rows ({8 // tile} blocks per SM): kara_exp "
+              f"{time_ms(chain, 10):.4f} ms at ({rows}, 8, 128), segments {lengths}; "
+              f"kara_square_run n = 32 {times[32]:.4f} ms; the runs {lengths} "
+              + ", ".join(f"{times[n]:.4f}" for n in lengths)
+              + f" ms, sum {sum(times[n] for n in lengths):.4f} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device is available", file=sys.stderr)
         return 2
-    sections = {int(x) for x in sys.argv[1:]} or set(range(1, 8))
+    sections = {int(x) for x in sys.argv[1:]} or set(range(1, 9))
     if sections & {1, 2, 3}:
         sections |= {1, 2, 3}
     dev = torch.device("cuda")
@@ -878,6 +1031,9 @@ def main() -> int:
             **{f"mul_warps{w}": edited(CSRC / "mont.cu", mul_warps_edits(w)) for w in warps},
             **{f"run_tile{t}": edited(CSRC / "cyc_exp.cu", run_tile_edits(t))
                for t in (2, 4)}},
+        8: {f"kara_tile{t}": edited(CSRC / "kara_exp.cu",
+                                    [constant_edit("kara_exp.cu", "TILE", t)])
+            for t in (2, 4)},
     }
     libs = nvcc({name: text for k, srcs in sources.items() if k in sections
                  for name, text in srcs.items()})
@@ -1030,12 +1186,7 @@ def main() -> int:
         # 6. kara_full's designs at the path's shape, on cyclotomic rows with the
         # identity in a whole row and in one slot
         kf_rows, four_rows = 1024, 4
-        ints = np.empty((2 * kf_rows, 12), dtype=object)
-        for idx in np.ndindex(ints.shape):
-            ints[idx] = int.from_bytes(rng.bytes(48), "little") % rm.P
-        f = torch.from_numpy(fp.encode(ints)).to(dev)
-        t0 = tower.mul(tower.conjugate(f), tower.inv(f))
-        cyc = tower.mul(tower.frobenius_pow(t0, 2), t0).contiguous()
+        cyc = cyclotomic(rng, kf_rows, dev)
         one = tower.one((), dev)
         cyc[1] = one
         cyc[2, :, RC.SUB:] = one[:, RC.SUB:]
@@ -1074,6 +1225,8 @@ def main() -> int:
 
     if 7 in sections:
         probe_redesigns(libs, dev)
+    if 8 in sections:
+        probe_karabina_tiles(libs, dev)
     print(f"[card] {card}")
     return 0
 

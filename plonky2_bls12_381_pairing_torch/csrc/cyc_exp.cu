@@ -36,11 +36,11 @@
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 2, 1024
 // packed rows, |BLS_X|): cyc_exp 0.815-0.823 ms, cyc_exp_cond 0.824-0.844 ms
-// (2.015-2.036 ms in the one-row blocks of rns_common.cuh that it had
-// before, timed alongside it), against a work bound of 0.026 ms.
+// (2.015-2.036 ms in the one-row blocks with a block-wide REDC that it
+// had before, timed alongside it), against a work bound of 0.026 ms.
 // cyc_square_run (kernel_probe.py, queued launches): n = 32 0.354 ms, the
 // six runs of |x| (1, 2, 3, 9, 32, 16) summed 0.740 ms, against 0.854 and
-// 1.710 ms in the one-row blocks of rns_common.cuh it had before
+// 1.710 ms in the one-row blocks it had before
 // (chip_smoke.py, the same call), and a work bound of 0.012 and 0.033 ms.
 
 #include "rns_redc_tc.cuh"

@@ -40,8 +40,8 @@
 // 2.46, the chain 0.46; 1.56 ms for 4 rows alone, so about half of the
 // time is the chains' latency and half the SMs' throughput on their lane
 // arithmetic. chip_smoke.py reads 3.24-3.33 ms (one launch between two
-// events), against 9.11-9.15 ms for the one-row blocks of rns_common.cuh
-// that it had before, timed alongside it, and a work bound of
+// events), against 9.11-9.15 ms for the one-row blocks with a block-wide
+// REDC that it had before, timed alongside it, and a work bound of
 // 0.019 ms. The warp design of pow_static.cu for the chains measured no
 // faster (3.08-3.50 ms; PERF.md).
 

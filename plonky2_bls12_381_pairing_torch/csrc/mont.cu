@@ -41,10 +41,12 @@
 //   four columns read back into registers, and mont_reduce_warp on them;
 //   the constants staged behind the only block barrier, as in mont_reduce.
 //   mont_pow keeps its base and its accumulator in the warp's shared
-//   memory for the whole exponent, whose bits after the leading one travel
-//   by value in the parameters: a squaring per bit, then a product with
-//   the base where it is set, the products fp.pow_static launches one by
-//   one, in its order. Its steps depend on each other, so a row's chain is
+//   memory for a piece of the exponent, whose bits after the leading one
+//   travel by value in the parameters (up to 32 * LIMB_POW_WORDS a
+//   launch): a squaring per bit, then a product with the base where it is
+//   set, the products fp.pow_static launches one by one, in its order. A
+//   longer exponent is one launch per piece, each starting from the
+//   accumulator the one before wrote (ops/kernels/mont.py). Its steps depend on each other, so a row's chain is
 //   latency: a product takes about 3,500 cycles alone, 4,900 among the
 //   2048 rows' 15 warps per SM, of which the reduction's two strip
 //   products (m = t p' and m p) a half and conv's runs a sixth. Measured on
@@ -311,12 +313,16 @@ struct PowBits {
   int n;
 };
 
-// a: (rows, 48) with row stride sa; out: (rows, 48) dense: a^e for the
-// exponent e whose bits after the leading one are `bits`. One warp per
-// row: the base in s.y, the accumulator in s.x, from the base on.
+// a: (rows, 48) with row stride sa, the base; from: (rows, 48) with row
+// stride sfrom, the accumulator to start from (the base itself for a whole
+// exponent, or for the first piece of a longer one); out: (rows, 48) dense:
+// from^(2^n) times the powers of a that `bits` selects (n = bits.n), i.e.
+// a^e for the exponent e whose bits after the leading one are `bits` when
+// from is a. One warp per row: the base in s.y, the accumulator in s.x.
 __global__ void __launch_bounds__(WARP * POW_WARPS)
-    mont_pow_kernel(const int* __restrict__ a, long long sa,
-                    const __grid_constant__ PowBits bits, int* __restrict__ out, int rows) {
+    mont_pow_kernel(const int* __restrict__ a, long long sa, const int* __restrict__ from,
+                    long long sfrom, const __grid_constant__ PowBits bits,
+                    int* __restrict__ out, int rows) {
   __shared__ LimbConsts k;
   __shared__ MulScratch scratch[POW_WARPS];
   load_consts(k, threadIdx.x, blockDim.x);
@@ -330,9 +336,8 @@ __global__ void __launch_bounds__(WARP * POW_WARPS)
   zero_pads(s, lane);
   int* const acc = s.x + OP_PAD;
   int* const base = s.y + OP_PAD;
-  const RowPart row_a = fetch_row(a + row * sa, lane);
-  stage_row(row_a, acc, lane);
-  stage_row(row_a, base, lane);
+  stage_row(fetch_row(from + row * sfrom, lane), acc, lane);
+  stage_row(fetch_row(a + row * sa, lane), base, lane);
   __syncwarp();
   for (int i = 0; i < bits.n; ++i) {
     mul_warp(acc, acc, run, lane, s, k, acc);
@@ -380,14 +385,16 @@ extern "C" int limb_mont_mul_launch(const int* a, long long sa, const int* b, lo
   return static_cast<int>(cudaGetLastError());
 }
 
-// bits: a host PowBits, copied into the launch's parameters.
-extern "C" int limb_mont_pow_launch(const int* a, long long sa, const void* bits, int* out,
-                                    int rows, void* stream) {
+// bits: a host PowBits, copied into the launch's parameters; from: the
+// accumulator's rows (a, sa on a chain's first launch).
+extern "C" int limb_mont_pow_launch(const int* a, long long sa, const int* from,
+                                    long long sfrom, const void* bits, int* out, int rows,
+                                    void* stream) {
   const PowBits& e = *static_cast<const PowBits*>(bits);
   if (e.n < 0 || e.n > 32 * LIMB_POW_WORDS) return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0) {
     mont_pow_kernel<<<tiles(rows, POW_WARPS), WARP * POW_WARPS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a, sa, e, out, rows);
+                      static_cast<cudaStream_t>(stream)>>>(a, sa, from, sfrom, e, out, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,9 +13,10 @@
 // time is one element's chain. Measured on an H100 80GB HBM3 at 700 W
 // (kernel_probe.py, both timed alike): 0.19 ms at (128, 128), 0.31 us (about
 // 610 cycles) per dependent step, against 0.67 ms and 1.1 us for the earlier
-// design of one 128-thread block per packed row with rns_common.cuh's redc
-// (four __syncthreads per REDC, the two 31-term sums on one accumulator
-// each, two shared loads per term; PERF.md). The design shortens the step:
+// design of one 128-thread block per packed row with a block-wide redc
+// (kernel_probe.py keeps it: four __syncthreads per REDC, the two 31-term
+// sums on one accumulator each, two shared loads per term; PERF.md). The
+// design shortens the step:
 //   * one warp per element (a 64-lane slot): thread t holds slot lanes t and
 //     t + 32, i.e. base-A lane t (t < 31) and base-B lane t + 32 (the
 //     redundant lane at t = 30, the alpha column at t = 31; thread 31's
@@ -31,7 +32,7 @@
 // threads: every thread also forms base-B lane 31's sum, which only thread
 // 31 keeps (its inputs are the same for the whole warp). A REDC output
 // depends only on these exact integer sums, so the order is free and the
-// rows stay those of rns_common.cuh's block-wide redc. The split of a step
+// rows stay those of fp.redc. The split of a step
 // by clock64() stamps: PERF.md.
 
 #include "rns_common.cuh"
@@ -88,7 +89,7 @@ __device__ __forceinline__ int dot(const int* sig, const int (&c)[NCH]) {
 }
 
 // One warp's REDC of the element whose lanes t and t + 32 hold x0 and x1
-// (rns_common.cuh redc, steps 1-4, with the same integers at every step).
+// (fp.redc, steps 1-4, with the same integers at every step).
 struct WarpRedc {
   int t;
   Lane c0, c1;

@@ -1,9 +1,9 @@
 // The RNS Montgomery reduction with its two base extensions on the tensor
-// cores: the REDC of rns_common.cuh for a tile of R packed rows per block.
+// cores (ops/rns/fp.py redc), for a tile of R packed rows per block.
 //
 // Layout: 128 threads per packed row, R rows per block (thread = row * 128 +
-// lane); a thread holds its lane's residue of every value, as in
-// rns_common.cuh. Steps 1, 3 and 5 run lane by lane. Steps 2 and 4, the two
+// lane); a thread holds its lane's residue of every value (rns_common.cuh).
+// Steps 1, 3 and 5 run lane by lane. Steps 2 and 4, the two
 // base extensions, are matrix products over the tile: the M = 24 R rows
 // (12 components x 2 slots x R rows) of sigmas, K = 32 (the 31 channels of
 // one base and a zero pad), times the extension block (fp._ext_matmul's
@@ -13,8 +13,8 @@
 // ll + ((sum - ll - hh) << 7) + (hh << 14), as fp._ext_matmul does. Every
 // plane is below 2^8 (sigma: lo < 128, hi <= 55, lo + hi <= 182; table:
 // lo + hi <= 190) and every partial and combined sum below 2^31, so the
-// integers are those of the per-lane dot products of rns_common.cuh, and a
-// REDC output, which depends only on them, is the same row.
+// integers are those of the per-lane dot products over the slot's sigmas,
+// and a REDC output, which depends only on them, is the same row.
 //
 // Columns: step 2 writes slot lanes B_LO..ALPHA_LANE (31 base B, the
 // redundant lane, the alpha column) as columns 0..32, padded to 40; step 4
@@ -137,8 +137,8 @@ __device__ __forceinline__ void extend(const unsigned char (&sig)[3][M][TC_PITCH
 
 #endif  // RNS_HOST_EMU
 
-// K <= 12 stacked reductions of the thread's row (fp.redc, steps 1-4), as
-// redc of rns_common.cuh: x[k] holds the lane's residue of X_k (value in
+// K <= 12 stacked reductions of the thread's row (fp.redc, steps 1-4):
+// x[k] holds the lane's residue of X_k (value in
 // [0, MA*p)); on return, the canonical residue of the stored element. Every
 // thread of the block must call it (four barriers). Each shared word is
 // rewritten only after a barrier that follows its last read: the sigma

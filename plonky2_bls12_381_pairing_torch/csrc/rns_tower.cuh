@@ -1,24 +1,25 @@
 // Fq6/Fq12 tower formulas on residues, shared by the RNS kernels
-// (cyc_exp.cu, square_run.cu, kara_exp.cu, kara_full.cu, miller.cu,
-// tower_ops.cu). Each Fq12 op takes the thread's 12 residues, computes the
-// formula of ops/rns/tower.py lane by lane with canonical residues, adds the
-// bias rows its plain formula adds before the REDC (rns_tables.h) and ends in
-// one 12-row REDC; the Karabina squaring does the same on 8.
+// (cyc_exp.cu, kara_exp.cu, kara_full.cu, miller.cu, tower_ops.cu). Each
+// Fq12 op takes the thread's 12 residues, computes the formula of
+// ops/rns/tower.py lane by lane with canonical residues, adds the bias rows
+// its plain formula adds before the REDC (rns_tables.h) and ends in one
+// 12-row REDC; the Karabina squaring does the same on 8.
 //
 // A bias argument points at the thread's entry of the first of 12 rows that
-// lie BS ints apart: a register array (BS = 1) or a table of rns_tables.h at
-// the thread's lane (BS = SUB). The formulas take the reduction's shared
-// memory as a type S and end in the redc that S selects: Smem<KS> for the
-// one-row blocks of rns_common.cuh, TcSmem<R> for the tensor-core tiles of
-// rns_redc_tc.cuh (cyc_exp, kara_full, tower_ops, miller).
+// lie BS ints apart: a register array (BS = 1) or a table of bias rows at
+// the thread's lane (BS = SUB; the kernels copy theirs into shared memory).
+// The formulas take the reduction's shared memory as a type S and end in
+// the redc that S selects: TcSmem<R>, the tensor-core tile of R packed rows
+// of rns_redc_tc.cuh, on which every RNS Fq12 kernel runs (cyc_exp,
+// kara_exp, kara_full, tower_ops, miller).
 #pragma once
 
-#include "rns_common.cuh"
+#include "rns_redc_tc.cuh"
 
 namespace rns {
 
-// Bias rows, then the stacked reduction, in place: rns_common.cuh's or
-// rns_redc_tc.cuh's redc, by the type of s.
+// Bias rows, then the stacked reduction, in place: the redc of the type of
+// s.
 template <int BS, class S>
 __device__ __forceinline__ void bias_redc(int (&a)[12], const F2 (&outs)[6], const Lane& c,
                                           S& s, const int* bias) {

@@ -18,7 +18,8 @@ dispatching function, so a plain run on a card launches none of these
 kernels. mont_mul's rows are mont_reduce(conv(a, b))'s: the fused kernel
 passes the reduction the bounds of a product of two stored operands.
 mont_pow's rows are those of fp.pow_static's chain of mont_mul calls, which
-its kernel runs in one launch.
+its kernel runs in one launch for an exponent of up to 32 * POW_WORDS + 1
+bits, and in one launch per piece of that many of its bits for a longer one.
 
 The kernels are built and bound by ops/cuda_build.py.
 """
@@ -39,8 +40,9 @@ NCOLS = 2 * NLIMBS - 1  # 95 columns of a 48 x 48 convolution
 #: most operand pairs of one conv launch: fq12.mul's group is 63 products
 #: (three fq6.mul_wide of 9 Karatsuba and 12 schoolbook products)
 K_MAX = 64
-#: 32-bit words of the longest exponent mont_pow takes, after its leading
-#: bit (p - 2 has 380 such bits)
+#: 32-bit words of the exponent's bits after its leading one that one
+#: mont_pow launch takes (p - 2 has 380 such bits); a longer exponent is
+#: one launch per piece
 POW_WORDS = 16
 #: warps an H100 holds at once (132 SMs x 64), and the most rows a conv
 #: warp computes in turn
@@ -75,14 +77,16 @@ class _PowBits(ctypes.Structure):
 #: (conv: and the rows per warp); an operand with a row stride is (PTR,
 #: STRIDE); conv takes its pairs (a _ConvPairs) and their count;
 #: mont_reduce also takes its column count and the count of its first
-#: shift-add passes; mont_pow its exponent's bits (a _PowBits)
+#: shift-add passes; mont_pow, after its base, the accumulator to start
+#: from and a piece of its exponent's bits (a _PowBits)
 _KERNELS = {
     "conv": ("mont.cu", "limb_conv_launch", [PTR, INT, PTR, INT, INT, PTR]),
     "mont_reduce": ("mont.cu", "limb_mont_reduce_launch",
                     [PTR, STRIDE, INT, INT, PTR, INT, PTR]),
     "mont_mul": ("mont.cu", "limb_mont_mul_launch",
                  [PTR, STRIDE] * 2 + [PTR, INT, PTR]),
-    "mont_pow": ("mont.cu", "limb_mont_pow_launch", [PTR, STRIDE, PTR, PTR, INT, PTR]),
+    "mont_pow": ("mont.cu", "limb_mont_pow_launch",
+                 [PTR, STRIDE, PTR, STRIDE, PTR, PTR, INT, PTR]),
 }
 
 #: Kernel launches per wrapper since the last reset_launches().
@@ -178,27 +182,49 @@ def _mont_mul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def pow_bits(exponent: int) -> _PowBits:
-    """The exponent's bits after its leading one, as the kernel takes them."""
+def _pow_struct(bits: list) -> _PowBits:
+    if len(bits) > 32 * POW_WORDS:
+        raise ValueError(f"exponents of at most {32 * POW_WORDS + 1} bits a launch, "
+                         f"got {len(bits) + 1}")
+    out = _PowBits()
+    out.n = len(bits)
+    for j, bit in enumerate(bits):
+        out.w[j // 32] |= bit << (j % 32)
+    return out
+
+
+def _bits_after_lead(exponent: int) -> list:
     n = exponent.bit_length() - 1
-    if n > 32 * POW_WORDS:
-        raise ValueError(f"exponents of at most {32 * POW_WORDS + 1} bits, got {n + 1}")
-    bits = _PowBits()
-    bits.n = n
-    for j in range(n):
-        bits.w[j // 32] |= ((exponent >> (n - 1 - j)) & 1) << (j % 32)
-    return bits
+    return [(exponent >> (n - 1 - j)) & 1 for j in range(n)]
+
+
+def pow_bits(exponent: int) -> _PowBits:
+    """The exponent's bits after its leading one, as one launch takes them:
+    an exponent of at most 32 * POW_WORDS + 1 bits."""
+    return _pow_struct(_bits_after_lead(exponent))
+
+
+def pow_pieces(exponent: int) -> list[_PowBits]:
+    """The exponent's bits after its leading one in pieces of at most
+    32 * POW_WORDS, MSB first, one per launch (one empty piece for 1)."""
+    bits, step = _bits_after_lead(exponent), 32 * POW_WORDS
+    return [_pow_struct(bits[i:i + step]) for i in range(0, max(len(bits), 1), step)]
 
 
 def _mont_pow_kernel(a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """Launch the mont_pow kernel (exponent >= 1): the rows read in place
-    through one row stride where the batch axes merge, else copied."""
-    bits = pow_bits(exponent)
+    """Launch the mont_pow kernel (exponent >= 1), once per piece of the
+    exponent (pow_pieces), each launch after the first starting from the
+    output of the one before: fp.pow_static's products in its order. The
+    base rows are read in place through one row stride where the batch axes
+    merge, else copied."""
     batch = tuple(a.shape[:-1])
     av, sa = _rows48(a, batch)
-    out = torch.empty((*batch, NLIMBS), dtype=torch.int32, device=a.device)
-    cuda_build.call("mont_pow", a.device, av.data_ptr(), sa, ctypes.addressof(bits),
-                    out.data_ptr(), math.prod(batch))
+    acc, s_acc = av, sa
+    for bits in pow_pieces(exponent):
+        out = torch.empty((*batch, NLIMBS), dtype=torch.int32, device=a.device)
+        cuda_build.call("mont_pow", a.device, av.data_ptr(), sa, acc.data_ptr(), s_acc,
+                        ctypes.addressof(bits), out.data_ptr(), math.prod(batch))
+        acc, s_acc = out, NLIMBS
     return out
 
 
@@ -262,8 +288,9 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mont_pow(a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent of stored rows (..., 48) for a static exponent >= 0: on the
-    card one launch for the whole chain (exponent 0 gives the one row, on
-    the host)."""
+    card one launch for the whole chain of an exponent of up to
+    32 * POW_WORDS + 1 bits, one per piece of that many bits beyond
+    (exponent 0 gives the one row, on the host)."""
     exponent = int(exponent)
     if exponent < 0:
         raise ValueError("the exponent must be >= 0")

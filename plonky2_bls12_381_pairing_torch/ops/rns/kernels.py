@@ -5,7 +5,7 @@ ops/rns/pallas.py on the pairing's paths) and their plain PyTorch versions.
   cyc_exp_cond(a, segments)       <- pallas.cyc_exp_run in its one-loop build,
                                      _build_cyc_exp_cond     (csrc/cyc_exp.cu)
   cyc_square_run(a, n)            <- pallas.cyc_square_run   (csrc/cyc_exp.cu)
-  kara_square_run(c, n)           <- pallas.kara_square_run  (csrc/square_run.cu)
+  kara_square_run(c, n)           <- pallas.kara_square_run  (csrc/kara_exp.cu)
   kara_exp(c, segments)           <- pallas.kara_exp_run     (csrc/kara_exp.cu)
   kara_full(a, segments)          <- pallas.kara_full_run    (csrc/kara_full.cu)
   pow_static_fused(a, exponent)   <- pallas.pow_static_fused (csrc/pow_static.cu)
@@ -66,7 +66,7 @@ _KERNELS = {
                      [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
     "cyc_square_run": ("cyc_exp.cu", "cyc_square_run_launch",
                        [_PTR, _PTR, _INT, _INT, _PTR]),
-    "kara_square_run": ("square_run.cu", "kara_square_run_launch",
+    "kara_square_run": ("kara_exp.cu", "kara_square_run_launch",
                         [_PTR, _PTR, _INT, _INT, _PTR]),
     "kara_exp": ("kara_exp.cu", "kara_exp_launch",
                  [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
@@ -359,8 +359,9 @@ def _square_run(name: str, plain, a: torch.Tensor, n: int, ncomp: int) -> torch.
 
 
 def _square_run_kernel(name: str, a: torch.Tensor, n: int, ncomp: int) -> torch.Tensor:
-    """A square run's launch on rows a (..., ncomp, LANES): cyc_square_run
-    on tiles of packed rows, kara_square_run one packed row per block."""
+    """A square run's launch on rows a (..., ncomp, LANES), on tiles of
+    packed rows: cyc_square_run cyc_exp's kernel body walking one run,
+    kara_square_run kara_exp's."""
     _check(a, (ncomp, LANES))
     out = torch.empty_like(a)
     _call(name, a.device, a.data_ptr(), out.data_ptr(), a.numel() // (ncomp * LANES), n)
@@ -376,7 +377,8 @@ def cyc_square_run(a: torch.Tensor, n: int) -> torch.Tensor:
 
 def kara_square_run(c: torch.Tensor, n: int) -> torch.Tensor:
     """n Karabina squarings of compressed rows c (..., 8, LANES) int32
-    (tower.compressed_square), the state on chip for the run."""
+    (tower.compressed_square), the state on chip for the run (kara_exp's
+    kernel on tiles of packed rows)."""
     return _square_run("kara_square_run", kara_square_run_plain, c, n, 8)
 
 
@@ -394,6 +396,12 @@ def kara_exp(c: torch.Tensor, segments) -> torch.Tensor:
     segments = _chain_lengths(segments)
     if c.device.type == "cpu":
         return kara_exp_plain(c, segments)
+    return _kara_exp_kernel(c, segments)
+
+
+def _kara_exp_kernel(c: torch.Tensor, segments: tuple) -> torch.Tensor:
+    """kara_exp's launch, tiles of packed rows; snapshot k of row r at
+    out[k, r]."""
     _check(c, (8, LANES))
     out = torch.empty((len(segments), *c.shape), dtype=torch.int32, device=c.device)
     segs = _int_arg(("chain", segments), segments, c.device)

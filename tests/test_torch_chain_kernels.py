@@ -1,6 +1,7 @@
 """The limb tier's mont_mul and mont_pow kernels (csrc/mont.cu, one warp per
-row) and cyc_square_run on the tensor-core REDC tile (csrc/cyc_exp.cu),
-every comparison bit for bit (tolerance 0):
+row), cyc_square_run on the tensor-core REDC tile (csrc/cyc_exp.cu) and the
+two Karabina walks on it (csrc/kara_exp.cu), every comparison bit for bit
+(tolerance 0):
   * the sources built for the host by torch_cuda_emu.py (one thread per
     CUDA thread, a barrier per warp, the tensor-core products as the same
     integer sums) and bound to the wrappers' launch helpers:
@@ -11,17 +12,22 @@ every comparison bit for bit (tolerance 0):
     mont_pow's kernel path against mont_pow_plain, the loop of
     mont_mul_plain, for the exponents 0, 1, 2, 3 and one with runs of set
     and clear bits at 1, 3 and 5 rows (zero rows among them map to zero),
-    and for p - 2 on one row and on a batch broadcast from one row;
+    and for p - 2 on one row and on a batch broadcast from one row; a
+    600-bit exponent in two launches, the second starting from the first's
+    output;
     cyc_square_run's kernel path against cyc_square_run_plain at 1, 3 and
-    5 packed rows for n = 0, 1, 3;
+    5 packed rows for n = 0, 1, 3; kara_square_run's and kara_exp's (one
+    kernel body walking one run or the chain with snapshots) against
+    kara_square_run_plain and kara_exp_plain likewise, kara_exp on chain
+    segments with a zero-length one;
   * fp.inv through the emulated mont_pow kernel against the JAX package's
     ops/fp.py inv on the CPU;
   * the sources: mont_mul and mont_pow take no block barrier after their
     constants are staged; cyc_square_run is cyc_exp's kernel body on the
-    tile, and square_run.cu keeps the Karabina runs alone;
+    tile, and the Karabina runs are kara_exp's;
   * the `gpu` twins hold the same cases and the paths' shapes (2048 rows,
-    1024 packed rows at the runs of |x|) on the card through the public
-    wrappers, and skip where there is no card."""
+    1024 packed rows at the runs and chain of |x|) on the card through the
+    public wrappers, and skip where there is no card."""
 
 import re
 
@@ -32,10 +38,10 @@ import torch
 
 from plonky2_bls12_381_pairing_torch import constants as C
 from plonky2_bls12_381_pairing_torch import interop
-from plonky2_bls12_381_pairing_torch.models.schedule import _GS_SEGMENTS
+from plonky2_bls12_381_pairing_torch.models.schedule import _GS_SEGMENTS, _KARA_SEGMENTS
 from plonky2_bls12_381_pairing_torch.ops import fp
 from plonky2_bls12_381_pairing_torch.ops.kernels import mont
-from plonky2_bls12_381_pairing_torch.ops.rns import kernels
+from plonky2_bls12_381_pairing_torch.ops.rns import kernels, tower
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 from plonky2_bls12_381_pairing_tpu.ops import fp as jfp
 from test_torch_exp_kernels import cyclotomic_rows
@@ -48,6 +54,10 @@ ROWS = (1, 3, 5, 127)
 #: no step (1), one squaring (2), a squaring and a product (3), and runs of
 #: set and clear bits
 EXPONENTS = (0, 1, 2, 3, 0b1110011000111)
+#: an exponent longer than one mont_pow launch takes (513 bits): 600 bits,
+#: runs of set and clear bits across the two pieces' seam
+LONG_EXPONENT = (1 << 599) | int.from_bytes(
+    np.random.default_rng(600).bytes(75), "little") % (1 << 599)
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +65,7 @@ def libs(tmp_path_factory):
     if compiler() is None:
         pytest.skip("needs a host C++ compiler (g++) to build the kernels for the CPU")
     out = tmp_path_factory.mktemp("emu")
-    return {src: build(src, out) for src in ("mont.cu", "cyc_exp.cu")}
+    return {src: build(src, out) for src in ("mont.cu", "cyc_exp.cu", "kara_exp.cu")}
 
 
 @pytest.fixture
@@ -152,6 +162,29 @@ def test_mont_pow_kernel_runs_the_fermat_chain(emu):
         mont.pow_bits(1 << (32 * mont.POW_WORDS + 1))  # longer than a launch takes
 
 
+def test_mont_pow_splits_a_long_exponent_into_launches():
+    """Up to 32 * POW_WORDS bits after the leading one are one launch, and
+    the pieces hold the bits in order."""
+    step = 32 * mont.POW_WORDS
+    for e, lengths in ((1, [0]), (2, [1]), (rm.P - 2, [380]), ((1 << step) | 5, [step]),
+                       ((1 << (step + 1)) | 5, [step, 1]), (LONG_EXPONENT, [step, 87])):
+        pieces = mont.pow_pieces(e)
+        assert [p.n for p in pieces] == lengths
+        bits = [(p.w[j // 32] >> (j % 32)) & 1 for p in pieces for j in range(p.n)]
+        assert int("1" + "".join(map(str, bits)), 2) == e
+    assert mont.pow_bits(rm.P - 2).n == 380
+
+
+def test_mont_pow_kernel_takes_a_long_exponent_in_pieces(emu):
+    """A 600-bit exponent: two launches, the second from the first's
+    output, the products and rows of mont_pow_plain."""
+    a = pow_rows(3)
+    got = mont._mont_pow_kernel(a, LONG_EXPONENT)
+    assert torch.equal(got, mont.mont_pow_plain(a, LONG_EXPONENT))
+    assert bool(fp.is_zero(got[0]))
+    assert emu["mont_pow"] == 2 and sum(emu.values()) == 2
+
+
 @pytest.mark.parametrize("rows", (1, 3, 5))
 @pytest.mark.parametrize("n", (0, 1, 3))
 def test_cyc_square_run_on_the_tile_matches_plain(libs, monkeypatch, rows, n):
@@ -163,6 +196,42 @@ def test_cyc_square_run_on_the_tile_matches_plain(libs, monkeypatch, rows, n):
     assert torch.equal(out, kernels.cyc_square_run_plain(a, n))
     if n == 0:
         assert torch.equal(out, a)
+    kernels.reset_launches()
+
+
+def karabina_rows(rows: int, seed: int) -> torch.Tensor:
+    """(rows, 8, LANES): compressed cyclotomic elements, the identity (all
+    zero) in one slot of the first row."""
+    a = cyclotomic_rows(rows, seed)
+    a[0, :, kernels.LANES // 2:] = tower.one((), torch.device("cpu"))[:, kernels.LANES // 2:]
+    return tower.compress_cyclotomic(a)
+
+
+@pytest.mark.parametrize("rows", (1, 3, 5))
+@pytest.mark.parametrize("n", (0, 1, 3))
+def test_kara_square_run_on_the_tile_matches_plain(libs, monkeypatch, rows, n):
+    bind(monkeypatch, kernels, libs["kara_exp.cu"])
+    kernels.reset_launches()
+    c = karabina_rows(rows, 0xE4 + rows)
+    out = kernels._square_run_kernel("kara_square_run", c, n, 8)
+    assert kernels.launches["kara_square_run"] == 1 and sum(kernels.launches.values()) == 1
+    assert torch.equal(out, kernels.kara_square_run_plain(c, n))
+    if n == 0:
+        assert torch.equal(out, c)
+    kernels.reset_launches()
+
+
+@pytest.mark.parametrize("rows", (1, 3, 5))
+def test_kara_exp_on_the_tile_matches_plain(libs, monkeypatch, rows):
+    bind(monkeypatch, kernels, libs["kara_exp.cu"])
+    kernels.reset_launches()
+    c = karabina_rows(rows, 0xE8 + rows)
+    segments = (1, 0, 2)
+    out = kernels._kara_exp_kernel(c, segments)
+    assert kernels.launches["kara_exp"] == 1 and sum(kernels.launches.values()) == 1
+    assert out.shape == (3, rows, 8, kernels.LANES)
+    assert torch.equal(out, kernels.kara_exp_plain(c, segments))
+    assert torch.equal(out[0], out[1])
     kernels.reset_launches()
 
 
@@ -216,9 +285,13 @@ def test_cyc_square_run_is_the_tiled_exponentiation_body():
     assert kernels._KERNELS["cyc_square_run"][0] == "cyc_exp.cu"
     src = _code("cyc_exp.cu")
     assert re.search(r"launch<RUN, RUN_TILE>", src) and "TcSmem<T>" in src
-    runs = _code("square_run.cu")
+    # the Karabina runs are kara_exp's kernel body walking one run
+    assert kernels._KERNELS["kara_square_run"][0] == "kara_exp.cu"
+    assert not (CSRC / "square_run.cu").exists()
+    runs = _code("kara_exp.cu")
     assert "kara_square_run_launch" in runs and "cyc_square_run" not in runs
     assert "cyc_square" not in runs and "RNS_CYC_BIAS" not in runs
+    assert re.search(r"launch<RUN, TILE>", runs) and re.search(r"launch<SNAPSHOTS, TILE>", runs)
 
 
 # ---------------------------------------------------------------------------
@@ -264,3 +337,29 @@ def test_cyc_square_run_on_the_tile_matches_plain_on_card(cuda, rows):
     for n in lengths:
         assert torch.equal(kernels.cyc_square_run(a, n), kernels.cyc_square_run_plain(a, n))
     assert kernels.launches["cyc_square_run"] == len(lengths)
+
+
+@pytest.mark.gpu
+def test_mont_pow_kernel_takes_a_long_exponent_in_pieces_on_card(cuda):
+    mont.reset_launches()
+    for rows in (1, 3, 5, 2048):
+        a = pow_rows(rows, cuda)
+        assert torch.equal(mont.mont_pow(a, LONG_EXPONENT),
+                           mont.mont_pow_plain(a, LONG_EXPONENT))
+    assert mont.launches["mont_pow"] == 2 * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", (1, 3, 5, 1023, 1024))
+def test_karabina_walks_on_the_tile_match_plain_on_card(cuda, rows):
+    # eight packed rows in turn, the first with the identity in one slot
+    c = karabina_rows(8, 0xEC).repeat(128, 1, 1)[:rows].to(cuda)
+    kernels.reset_launches()
+    lengths = sorted({0, 1, 3, *_KARA_SEGMENTS}) if rows >= 1023 else (0, 1, 3)
+    for n in lengths:
+        assert torch.equal(kernels.kara_square_run(c, n), kernels.kara_square_run_plain(c, n))
+    chains = ((1, 0, 2), _KARA_SEGMENTS) if rows >= 1023 else ((1, 0, 2),)
+    for segments in chains:
+        assert torch.equal(kernels.kara_exp(c, segments), kernels.kara_exp_plain(c, segments))
+    assert kernels.launches["kara_square_run"] == len(lengths)
+    assert kernels.launches["kara_exp"] == len(chains)

@@ -12,8 +12,8 @@ the same integer sums), every comparison bit for bit (tolerance 0):
     form is zero, the g2 == 0 branch with a zero norm; on short chain
     segments (a zero-length one among them) and on |BLS_X|'s; the Fermat
     chains are p - 2's whole 608 REDCs;
-  * both kernels on the tensor-core tile, not on rns_common.cuh's one-row
-    blocks.
+  * both kernels, and kara_exp.cu's Karabina walks, on the tensor-core
+    tile; no source keeps the one-row blocks' shared-memory REDC.
 The plain versions are held to the JAX package in test_torch_karabina.py
 and test_torch_pairing.py."""
 
@@ -103,11 +103,21 @@ def _code(source: str) -> str:
     return re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
 
 
-@pytest.mark.parametrize("source", ["cyc_exp.cu", "kara_full.cu"])
+@pytest.mark.parametrize("source", ["cyc_exp.cu", "kara_full.cu", "kara_exp.cu"])
 def test_exp_kernels_run_on_the_tensor_core_tile(source):
-    """One block per tile of packed rows on rns_redc_tc.cuh's redc (cyc_exp.cu:
-    a tile of T rows, the template's, for its three walks); none of
-    rns_common.cuh's one-row blocks (Smem) is left."""
+    """One block per tile of packed rows on rns_redc_tc.cuh's redc (cyc_exp.cu
+    and kara_exp.cu: a tile of T rows, the template's, for their walks);
+    none of the one-row blocks' REDC (Smem) is left."""
     code = _code(source)
     assert re.search(r"TcSmem<T(ILE)?>", code) and re.search(r"constexpr int TILE = \w+;", code)
     assert not re.search(r"\bSmem<", code) and "load_tables(" not in code
+
+
+def test_no_source_keeps_the_one_row_block_redc():
+    """Every RNS Fq12 kernel runs on the tensor-core tile (TcSmem); the
+    one-row blocks' shared memory and table copy are gone from csrc/."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    assert len(sources) > 10
+    for src in sources:
+        text = src.read_text()
+        assert not re.search(r"\bSmem<", text) and "load_tables(" not in text, src.name

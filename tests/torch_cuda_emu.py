@@ -1,9 +1,11 @@
 """The port's CUDA sources built for the host CPU, so that tests without a
 card run the kernels' own code.
 
-`build` compiles csrc/<source> with the host's C++ compiler (g++, C++20)
-against a small stand-in for the CUDA runtime and the generated headers of
-both tiers (rns_tables.h, limb_tables.h): a launch runs its blocks one after
+`build` compiles csrc/<source> with the host's C++ compiler (g++, C++17,
+as ops/cuda_build.py's nvcc: C++20 would find a function template by its
+arguments where nvcc needs it declared) against a small stand-in for the
+CUDA runtime and the generated headers of both tiers (rns_tables.h,
+limb_tables.h): a launch runs its blocks one after
 another, each as one std::thread per CUDA thread (1-, 2- or 3-D blocks),
 with a barrier for __syncthreads (a counter whose waiters yield their core
 while they spin: a block has more threads than the host has cores), one
@@ -268,7 +270,7 @@ def build(source: str, out_dir: Path) -> ctypes.CDLL:
     src = out_dir / (Path(source).stem + ".cpp")
     src.write_text(_dynamic_shared(_launches_to_calls((CSRC / source).read_text())))
     lib = out_dir / f"lib{Path(source).stem}.so"
-    proc = subprocess.run([compiler() or "g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+    proc = subprocess.run([compiler() or "g++", "-std=c++17", "-O1", "-shared", "-fPIC",
                            "-pthread", "-w", "-DRNS_HOST_EMU", "-I", str(out_dir), "-I",
                            str(CSRC), "-o", str(lib), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
