@@ -55,7 +55,16 @@ Phases (any failure exits non-zero; nothing is caught):
          frozen vectors, the two strategies equal in value; and the two-term
          `pairing_check` under "fused";
      and time each;
-  4. profile one call of each path: device-busy share and the top kernels.
+  4. profile one call of each path: device-busy share and the top kernels;
+  5. capture each of `pairing`, `multi_pairing` with one term, the two
+     two-term `pairing_check`s and the limb `pairing` under "fused" into a
+     CUDA graph (utils/capture.py) from entry-style inputs (the generators),
+     replay it on two other input sets (the run's points; the frozen
+     vectors' points and the run's from ROLL on) and hold each replay to
+     the eager call on the same inputs, 2048/2048 bit for bit, and to the
+     path's own check (the oracle and the frozen vectors, or the checks'
+     expected truth); time captured against eager calls, profile one replay,
+     and report the capture's seconds and memory.
 The second-to-last lines are the card's name and power limit and a JSON
 object with each kernel's numbers; the last line is
 {"ok": true, "device": {...}}.
@@ -74,7 +83,6 @@ import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -96,6 +104,9 @@ from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
 from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernel_tables, kernels, tower
 from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
+from plonky2_bls12_381_pairing_torch.utils.capture import capture
+from plonky2_bls12_381_pairing_torch.utils.profiling import (REDC_ROW, TC_OPS_PER_EXT_MAC, Work,
+                                                             device_profile, lane_work)
 
 KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "pairing_kat.json"
 TPU_KERNELS = "plonky2_bls12_381_pairing_tpu/ops/rns/pallas.py"
@@ -120,36 +131,9 @@ INT32_OPS_PER_S = 2 * 64 * 132 * CLOCK_HZ
 U8_TC_OPS_PER_S = 1.979e15
 
 
-class Work(NamedTuple):
-    """The operations of an RNS kernel's work: int32 operations outside the
-    REDC base extensions, and the base extensions' multiply-adds, which are
-    matrix products the card can run on its tensor cores (3 u8 plane
-    products of 2 operations each per multiply-add, csrc/rns_redc_tc.cuh)."""
-
-    int_ops: int
-    ext_macs: int
-
-    def __add__(self, other: "Work") -> "Work":
-        return Work(self.int_ops + other.int_ops, self.ext_macs + other.ext_macs)
-
-    def __mul__(self, k: int) -> "Work":
-        return Work(self.int_ops * k, self.ext_macs * k)
-
-    __rmul__ = __mul__
-
-
-def lane_work(products: int) -> Work:
-    """`products` channel products, one operation per lane on the 63
-    channel lanes."""
-    return Work(products * 63, 0)
-
-
-# Operation model of one REDC row (one element's component): the two base
-# extensions' multiply-adds (31 base-A sigmas onto 31 base-B lanes, the
-# redundant lane and the alpha column; 31 base-B sigmas onto 31 base-A lanes
-# and the beta column), plus five per-lane products (sigma, two for sigma',
-# two for the output) on the 63 channel lanes.
-REDC_ROW = Work(5 * 63, 31 * 33 + 31 * 32)
+# The operation model of RNS work (Work: int32 operations and base-extension
+# multiply-adds; lane_work: channel products; REDC_ROW: one REDC row) is
+# utils/profiling.py's.
 #: channel products (one per lane) of a Granger-Scott squaring (9 Fq2
 #: products of 3 each, 12 lifts) and of a full Fq12 product (18 Fq2 products)
 CYC_SQ_PRODUCTS, FQ12_MUL_PRODUCTS = 9 * 3 + 12, 18 * 3
@@ -309,7 +293,8 @@ def bound_ms(nbytes: int, ops) -> tuple[float, str, float | None]:
     instead (the figure of earlier runs). Limb kernels give int32 operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if isinstance(ops, Work):
-        t_ops = max(ops.int_ops / INT32_OPS_PER_S, 6 * ops.ext_macs / U8_TC_OPS_PER_S) * 1e3
+        t_ops = max(ops.int_ops / INT32_OPS_PER_S,
+                    TC_OPS_PER_EXT_MAC * ops.ext_macs / U8_TC_OPS_PER_S) * 1e3
         int32_only = max(t_bytes, (ops.int_ops + 2 * ops.ext_macs) / INT32_OPS_PER_S * 1e3)
     else:
         t_ops, int32_only = ops / INT32_OPS_PER_S * 1e3, None
@@ -432,33 +417,21 @@ def points() -> tuple[list, list]:
 
 def profile_call(name: str, run, host_ops: bool = True) -> dict:
     """Device-busy share of one call and the kernels that take its device
-    time, from torch.profiler (CUDA kernel events only). With host_ops False
-    the host's operator events are not recorded: a limb call's quarter of a
-    million launches make a trace whose host half takes minutes to digest."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
-    with profile(activities=activities) as prof:
-        run()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) * 1e3
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not evs:
+    time (utils/profiling.py device_profile: torch.profiler, CUDA kernel
+    events), printed. With host_ops False the host's operator events are not
+    recorded: a limb call's quarter of a million launches make a trace whose
+    host half takes minutes to digest."""
+    prof = device_profile(run, host_ops=host_ops)
+    if prof["device_ms"] is None:
         print(f"[profile] {name}: device time not measured: the profiler saw no "
               f"CUDA kernels")
         return {"device_ms": None, "kernel_launches": None}
-    busy = sum(e.self_device_time_total for e in evs) / 1e3
-    n = sum(e.count for e in evs)
-    print(f"[profile] {name}: one call, profiler on: {wall:.1f} ms wall, {busy:.1f} ms "
-          f"of kernels ({100 * busy / wall:.1f} % busy), {n} kernel launches")
-    for e in sorted(evs, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x "
-              f"{e.key[:90]}")
-    return {"device_ms": busy, "kernel_launches": n}
+    print(f"[profile] {name}: one call, profiler on: {prof['wall_ms']:.1f} ms wall, "
+          f"{prof['device_ms']:.1f} ms of kernels ({100 * prof['busy']:.1f} % busy), "
+          f"{prof['kernel_launches']} kernel launches")
+    for ms, count, key in prof["top"]:
+        print(f"[profile]   {ms:9.2f} ms {count:7d} x {key[:90]}")
+    return {"device_ms": prof["device_ms"], "kernel_launches": prof["kernel_launches"]}
 
 
 _T0 = time.perf_counter()
@@ -667,6 +640,97 @@ def time_path(name: str, run, card: str, reps: int = 3) -> dict:
           f"{max(times):.1f} of {reps}), {rate:.1f} per s on {card}")
     return {"batch": BATCH, "ms": ms, "ms_min": min(times), "ms_max": max(times),
             "per_s": rate, "card": card}
+
+
+#: set B of phase 5: the frozen vectors' points, then the run's points from
+#: this index on (their order turned round)
+ROLL = 1000
+
+
+def elements_equal(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Elements of the batch whose outputs are equal: an RNS output (rows,
+    ..., LANES) packs two elements a row, a limb output has one a row, a
+    check's bools one each."""
+    eq = got == want
+    if got.shape[-1] == RC.LANES:
+        eq = eq.reshape(eq.shape[0], -1, RC.PACK, RC.SUB).all(dim=-1).all(dim=1)
+    elif got.dtype != torch.bool:
+        eq = eq.reshape(eq.shape[0], -1).all(dim=1)
+    return int(eq.reshape(-1)[:BATCH].sum().item())
+
+
+def capture_phase(card: str, paths: dict) -> dict:
+    """Phase 5: each path captured once (utils/capture.py) from the
+    entry-style inputs, then replayed on two other input sets; on each the
+    replay's rows equal the eager call's, 2048/2048, and pass the path's own
+    check. Also: captured against eager ms per call (median of 3,
+    synchronised), one replay's device ms and busy share (device_profile)
+    and its span between two CUDA events, the capture's seconds and peak
+    memory."""
+    out = {}
+    for name, (fn, example, sets, verify) in paths.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step = capture(fn, *example)
+        held = torch.cuda.memory_allocated() - before
+        peak = torch.cuda.max_memory_allocated() - before
+        print(f"[capture {name}] captured in {step.capture_seconds:.2f} s (one eager call and "
+              f"the capture); peak memory {peak / 2**20:.1f} MiB above the {before / 2**20:.1f} "
+              f"MiB the run held, {held / 2**20:.1f} MiB held by the graph and its buffers")
+        replays = []
+        for k, args in enumerate(sets):
+            got = step(*args)
+            want = fn(*args)
+            torch.cuda.synchronize()
+            n_eq = elements_equal(got, want)
+            print(f"[capture {name}] input set {k + 1}: replay equals the eager call on "
+                  f"{n_eq}/{BATCH}")
+            assert n_eq == BATCH and torch.equal(got, want), (name, k, n_eq)
+            verify(k, got)
+            replays.append(got)
+        # (a check's truth may be the same on both sets)
+        assert replays[0].dtype == torch.bool or not torch.equal(*replays), (
+            f"{name}: the two input sets gave the same rows")
+        eager = host_times(lambda: fn(*sets[0]), 3)
+        captured = host_times(lambda: step(*sets[0]), 3)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        step.graph.replay()
+        end.record()
+        end.synchronize()
+        span = start.elapsed_time(end)
+        prof = device_profile(lambda: step(*sets[0]), host_ops=False)
+        res = {"batch": BATCH, "capture_s": step.capture_seconds, "peak_bytes_above": peak,
+               "graph_bytes": held, "eager_ms": statistics.median(eager),
+               "eager_ms_min": min(eager), "eager_ms_max": max(eager),
+               "captured_ms": statistics.median(captured), "captured_ms_min": min(captured),
+               "captured_ms_max": max(captured), "replay_span_ms": span,
+               "replay_device_ms": prof["device_ms"], "replay_busy": prof["busy"],
+               "replay_kernels": prof["kernel_launches"], "card": card}
+        res["eager_per_s"] = BATCH / (res["eager_ms"] / 1e3)
+        res["captured_per_s"] = BATCH / (res["captured_ms"] / 1e3)
+        # busy share: the replay's kernel time over the unprofiled ms per
+        # call, as phase 4's shares are read (the profiled call's own is
+        # printed beside it)
+        res["captured_busy"] = (None if prof["device_ms"] is None
+                                else prof["device_ms"] / res["captured_ms"])
+        dev_note = ("device ms not measured (the profiler saw no kernel)"
+                    if prof["device_ms"] is None else
+                    f"device {prof['device_ms']:.1f} ms in {prof['kernel_launches']} kernels, "
+                    f"{100 * res['captured_busy']:.1f} % busy ({100 * prof['busy']:.1f} % "
+                    f"of the profiled call's {prof['wall_ms']:.1f} ms)")
+        print(f"[capture {name}] B={BATCH}: captured {res['captured_ms']:.1f} ms per call "
+              f"(min {min(captured):.1f}, max {max(captured):.1f}), eager "
+              f"{res['eager_ms']:.1f} ms (min {min(eager):.1f}, max {max(eager):.1f}); "
+              f"{res['captured_per_s']:.1f} against {res['eager_per_s']:.1f} per s; one "
+              f"replay: {span:.2f} ms between events, {dev_note}; on {card}")
+        out[name] = res
+        del step, replays, got, want
+        mark(f"captured {name}")
+    return out
 
 
 def main() -> int:
@@ -1393,6 +1457,72 @@ def main() -> int:
         for name in limb_runs:
             print(json.dumps({name: {**timed[name], "launches": {
                 k: v for k, v in path_counts[name].items() if v}}}))
+
+        # -- 5. the whole call captured into a CUDA graph --------------------
+        # Captured from entry-style inputs (the generators at every element),
+        # replayed on set 1 (the run's points) and set 2 (the frozen
+        # vectors' points, then the run's from ROLL on)
+        g1, g2 = rm.G1Affine.generator(), rm.G2Affine.generator()
+        idx = [(ROLL + i) % BATCH for i in range(BATCH - len(kp))]
+        ps_b, qs_b = kp + [ps[i] for i in idx], kq + [qs[i] for i in idx]
+        want_b = [w.coeffs() for w in kwant] + [want_rows[i] for i in idx]
+        inf_b = [j for j in range(BATCH) if ps_b[j].infinity or qs_b[j].infinity]
+        want_sets = (want_rows, want_b)
+        inf_sets = ([5, 6], inf_b)
+        p_gen, q_gen = G1Affine.generator((BATCH,), dev), G2Affine.generator((BATCH,), dev)
+        n_gen = G1Affine.encode([g1.neg()] * BATCH, device=dev)
+        p_b, q_b = G1Affine.encode(ps_b, device=dev), G2Affine.encode(qs_b, device=dev)
+        n_b = G1Affine.encode([p.neg() for p in ps_b], device=dev)
+        lp_b, lq_b = lcurve.G1Affine.encode(ps_b, device=dev), lcurve.G2Affine.encode(qs_b,
+                                                                                    device=dev)
+
+        def oracle_check(name, decode):
+            def verify(k, got):
+                rows_ = decode(got)[:BATCH]
+                same = [list(rows_[i]) == want_sets[k][i] for i in range(BATCH)]
+                note = f", KAT e_chain {sum(same[:len(kp)])}/{len(kp)}" if k == 1 else ""
+                print(f"[capture {name}] input set {k + 1}: replay vs oracle "
+                      f"{sum(same)}/{BATCH}{note}")
+                assert all(same), (name, k)
+            return verify
+
+        def check_true(name, where):
+            def verify(k, got):
+                ok = got.reshape(-1)[:BATCH].cpu().numpy()
+                want = list(range(BATCH)) if where is None else inf_sets[k]
+                print(f"[capture {name}] input set {k + 1}: true at {int(ok.sum())}/{BATCH}"
+                      f" elements, as expected: {np.flatnonzero(ok).tolist() == want}")
+                assert np.flatnonzero(ok).tolist() == want, (name, k)
+            return verify
+
+        def limb_fused_pairing(p, q):
+            lfp.set_strategy("fused")
+            try:
+                return lmp.pairing(p, q)
+            finally:
+                lfp.set_strategy("auto")
+
+        capture_paths = {
+            "pairing": (mpr.pairing, (p_gen, q_gen), [(p_dev, q_dev), (p_b, q_b)],
+                        oracle_check("pairing", fp.decode)),
+            "multi_pairing_1": (mpr.multi_pairing, ([p_gen], [q_gen]),
+                                [([p_dev], [q_dev]), ([p_b], [q_b])],
+                                oracle_check("multi_pairing_1", fp.decode)),
+            "pairing_check_2": (mpr.pairing_check, ([p_gen, n_gen], [q_gen, q_gen]),
+                                [([p_dev, n_dev], [q_dev, q_dev]), ([p_b, n_b], [q_b, q_b])],
+                                check_true("pairing_check_2", None)),
+            "pairing_check_2_same": (
+                mpr.pairing_check, ([p_gen, p_gen], [q_gen, q_gen]),
+                [([p_dev, p_dev], [q_dev, q_dev]), ([p_b, p_b], [q_b, q_b])],
+                check_true("pairing_check_2_same", "infinity")),
+            "limb_pairing_fused": (
+                limb_fused_pairing, (lcurve.G1Affine.generator((BATCH,), dev),
+                                     lcurve.G2Affine.generator((BATCH,), dev)),
+                [(lp_dev, lq_dev), (lp_b, lq_b)],
+                oracle_check("limb_pairing_fused", lfp.decode)),
+        }
+        captured = capture_phase(card, capture_paths)
+        print(json.dumps({"capture": captured}))
 
     all_kernels = cuda_build.all_launches()
     for name in all_kernels:

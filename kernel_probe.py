@@ -55,6 +55,13 @@ embedded below. Every kernel it times is held to its plain version.
      rows (four blocks per SM) and of 4 (two) at 1024 packed rows: kara_exp
      with |BLS_X|'s six snapshots, kara_square_run at n = 32 and over the
      six runs of |x|.
+  9. which runtime calls a launcher may make while torch.cuda.graph captures
+     its stream in the default ("global") mode: a launch alone, a launch
+     after cudaGetDevice and cudaDeviceGetAttribute (as tower_ops.cu's
+     grid_for makes on every launch), and a launch after
+     cudaFuncSetAttribute (as limb_tower.cu made on every launch before it
+     set the attribute once per device); each launcher (embedded below)
+     called eagerly, then captured and replayed.
 Each design is timed over queued launches behind a held stream and held to
 its plain version. Prints the card's name and power limit first and last.
 
@@ -994,11 +1001,82 @@ def probe_karabina_tiles(libs: dict, dev: torch.device) -> None:
               + f" ms, sum {sum(times[n] for n in lengths):.4f} ms")
 
 
+#: Section 9's launchers: one kernel that writes its launch's tag, launched
+#: with 64 KB of dynamic shared memory (above the default 48 KB, so that the
+#: attribute is needed), after the runtime calls each launcher names.
+CAPTURE_PROBE = r"""
+#include <cuda_runtime.h>
+
+__global__ void tag_kernel(int* out, int tag) {
+  extern __shared__ int s[];
+  s[threadIdx.x] = tag;
+  __syncthreads();
+  if (threadIdx.x == 0) out[0] = s[0];
+}
+
+constexpr int SMEM = 64 * 1024;
+
+static int launch(int* out, int tag, void* stream) {
+  tag_kernel<<<1, 32, SMEM, static_cast<cudaStream_t>(stream)>>>(out, tag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int probe_setup() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      tag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM));
+}
+
+extern "C" int probe_plain(int* out, int tag, void* stream) { return launch(out, tag, stream); }
+
+extern "C" int probe_query(int* out, int tag, void* stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch(out, tag, stream);
+}
+
+extern "C" int probe_attr(int* out, int tag, void* stream) {
+  const int err = probe_setup();
+  if (err != 0) return err;
+  return launch(out, tag, stream);
+}
+"""
+
+
+def probe_capture(lib: ctypes.CDLL, dev: torch.device) -> None:
+    """Section 9: each launcher called eagerly, then captured into a CUDA
+    graph (torch.cuda.graph, capture_error_mode "global") and replayed; what
+    the capture made of it."""
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    assert lib.probe_setup() == 0
+    for tag, name in enumerate(("probe_plain", "probe_query", "probe_attr"), start=1):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        assert fn(out.data_ptr(), tag, torch.cuda.current_stream().cuda_stream) == 0, name
+        torch.cuda.synchronize()
+        assert int(out.item()) == tag, name
+        out.zero_()
+        graph, codes = torch.cuda.CUDAGraph(), []
+        try:
+            with torch.cuda.graph(graph):
+                codes.append(fn(out.data_ptr(), 10 + tag,
+                                torch.cuda.current_stream().cuda_stream))
+            graph.replay()
+            torch.cuda.synchronize()
+            verdict = (f"captured (launcher returned {codes[0]}), the replay wrote "
+                       f"{int(out.item())} (expected {10 + tag})")
+        except RuntimeError as e:  # the capture refused: what it said
+            verdict = f"refused: launcher returned {codes}, {str(e).splitlines()[0]}"
+        torch.cuda.synchronize()
+        print(f"[capture] {name}: {verdict}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device is available", file=sys.stderr)
         return 2
-    sections = {int(x) for x in sys.argv[1:]} or set(range(1, 9))
+    sections = {int(x) for x in sys.argv[1:]} or set(range(1, 10))
     if sections & {1, 2, 3}:
         sections |= {1, 2, 3}
     dev = torch.device("cuda")
@@ -1034,6 +1112,7 @@ def main() -> int:
         8: {f"kara_tile{t}": edited(CSRC / "kara_exp.cu",
                                     [constant_edit("kara_exp.cu", "TILE", t)])
             for t in (2, 4)},
+        9: {"capture_probe": CAPTURE_PROBE},
     }
     libs = nvcc({name: text for k, srcs in sources.items() if k in sections
                  for name, text in srcs.items()})
@@ -1227,6 +1306,8 @@ def main() -> int:
         probe_redesigns(libs, dev)
     if 8 in sections:
         probe_karabina_tiles(libs, dev)
+    if 9 in sections:
+        probe_capture(libs["capture_probe"], dev)
     print(f"[card] {card}")
     return 0
 

@@ -40,8 +40,10 @@
 // miller_run reads each (step, term)'s six coefficient residues straight
 // from device memory, 128 consecutive int32 per component, one (step, term)
 // ahead of their use, so that the load is in flight during the previous
-// one's arithmetic; the terms' pointers come as a table in device memory,
-// so that one launch takes any number of terms.
+// one's arithmetic. The terms' pointers come by value in the launch's
+// parameters (a __grid_constant__ Terms of up to MILLER_MAX_TERMS), so that
+// a launch reads no table the host wrote for it, and a CUDA graph that
+// captured the launch replays it with the pointers it was captured with.
 
 #include "rns_lines.cuh"
 #include "rns_tile.cuh"
@@ -62,6 +64,12 @@ struct Term {
   const int* skip;
 };
 
+// The terms of one launch (ops/rns/kernels.py _MillerTerms).
+constexpr int MILLER_MAX_TERMS = 64;
+struct Terms {
+  Term t[MILLER_MAX_TERMS];
+};
+
 // f <- f where keep, else f * ((d0 + d1 v) + (d4 v) w).
 __device__ __forceinline__ void ell_select(int (&f)[12], F2 d0, F2 d1, F2 d4, bool keep,
                                            const Lane& c, TcSmem<TILE>& s, int l) {
@@ -80,11 +88,11 @@ __device__ __forceinline__ void load6(int (&v)[6], const int* p, const Row& r, i
   for (int k = 0; k < 6; ++k) v[k] = r.live ? p[(r.row * 6 + k) * LANES + lane] : 0;
 }
 
-// f0: rows of (12, 128), sf ints apart; terms: nterms entries in device
-// memory; flags: nsteps do-square flags; out: (rows, 12, 128).
+// f0: rows of (12, 128), sf ints apart; tt: nterms terms; flags: nsteps
+// do-square flags; out: (rows, 12, 128).
 __global__ void __launch_bounds__(THREADS, 1)
     miller_run_kernel(const int* __restrict__ f0, long long sf,
-                      const Term* __restrict__ terms, int nterms,
+                      const __grid_constant__ Terms tt, int nterms,
                       const int* __restrict__ flags, int nsteps, int* __restrict__ out,
                       int rows) {
   __shared__ TcSmem<TILE> s;
@@ -96,6 +104,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int total = nsteps * nterms;
   int nxt[6];
+  const Term* terms = tt.t;
   if (total > 0) load6(nxt, terms[0].coeffs, r, b.lane);
   int i = 0;
   for (int j = 0; j < nsteps; ++j) {
@@ -198,15 +207,15 @@ Points points(const int* rx, long long srx, const int* ry, long long sry, const 
 
 }  // namespace
 
-// terms: nterms entries of four pointers, (coeffs, py, px, skip), in device
-// memory.
+// terms: a host Terms whose first nterms entries hold each term's four
+// pointers (coeffs, py, px, skip), copied into the launch's parameters.
 extern "C" int miller_run_launch(const int* f0, long long sf, const void* terms, int nterms,
                                  const int* flags, int nsteps, int* out, int rows,
                                  void* stream) {
-  if (nterms < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nterms < 1 || nterms > MILLER_MAX_TERMS) return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0) {
     miller_run_kernel<<<tiles(rows), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        f0, sf, static_cast<const Term*>(terms), nterms, flags, nsteps, out, rows);
+        f0, sf, *static_cast<const Terms*>(terms), nterms, flags, nsteps, out, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

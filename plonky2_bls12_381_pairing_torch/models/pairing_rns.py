@@ -33,9 +33,10 @@ import torch
 
 from .. import constants as C
 from ..ops.rns import fp, kernels, tower
-from ..ops.rns.lines import G1Affine, G2Affine, G2Projective, scale_terms
+from ..ops.rns.lines import (G1Affine, G2Affine, G2Projective, addition_step, doubling_step,
+                             scale_terms)
 from .schedule import (_DO_SQUARE, _FUSED_FLAGS, _GS_SEGMENTS, _IS_ADD, _KARA_SEGMENTS,
-                       _MILLER_RUNS, NUM_COEFFS)
+                       _MILLER_RUNS, _X_SET_BITS, NUM_COEFFS)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +129,8 @@ def miller_loop(ps, prepared_stepmajor, q_infinities=None) -> torch.Tensor:
     tensors from prepare_g2_stepmajor; q_infinities: the G2 points' packed
     infinity masks (None: no G2 point at infinity). Returns f:
     (..., 12, LANES). The accumulation is kernels.miller_run (one kernel on a
-    card for any number of terms); its rows are those of miller_steps_raw."""
+    card for up to kernels.MILLER_MAX_TERMS terms); its rows are those of
+    miller_steps_raw."""
     if not isinstance(ps, (list, tuple)):
         ps = [ps]
         prepared_stepmajor = [prepared_stepmajor]
@@ -294,7 +296,7 @@ def final_exponentiation(f: torch.Tensor, impl: str = "segments") -> torch.Tenso
     t4 = tower.mul(t4, m[0])
     s1 = tower.frobenius_map(m[1:])          # [B, C, D] ^p
     t6 = s1[1]
-    s2 = tower.frobenius_map(s1[[0, 2]])     # [B, D] ^p^2
+    s2 = tower.frobenius_map(s1[0::2])       # [B, D] ^p^2 (a view: no index tensor)
     t3 = s2[1]
     t1 = tower.frobenius_map(s2[0])          # B ^p^3
     t3 = tower.mul(t3, t1)
@@ -312,6 +314,76 @@ def pairing(p: G1Affine, q: G2Affine, impl: str = "segments") -> torch.Tensor:
     device the points lie on (G1Affine.encode / G2Affine.encode choose it).
     `impl`: the form of the final exponentiation's powers (cyclotomic_exp)."""
     return final_exponentiation(miller_loop_fused(p, q), impl)
+
+
+def op_counts(batch: int = 2048) -> dict:
+    """Exact RNS Fp-op counts per pairing (fp_mul / redc), composed from the
+    counts of each component (fp.count_fp_ops, at one packed row on the CPU)
+    times its repetitions in the static schedule, as the JAX package's
+    op_counts composes them. `batch` spreads the batched inverse's one
+    Fermat power over the batch (fp.inv).
+
+    One difference: the final exponentiation runs one cyclotomic square
+    outside its five exponentiations (t1pre), and this counts one; the JAX
+    package's op_counts counts two."""
+    B = 2  # one packed row
+    p = G1Affine.generator((B,), device="cpu")
+    q = G2Affine.generator((B,), device="cpu")
+    r = G2Projective.from_affine(q)
+    f = tower.one((1,), "cpu")
+    py, px = fp.wrap(p.y[..., None, :]), fp.wrap(p.x[..., None, :])
+    sc2 = torch.zeros((1, 2, fp.LANES), dtype=torch.int32)
+
+    def per(fn, *args):
+        return {k: v / B for k, v in fp.count_fp_ops(fn, *args).items()}
+
+    def add_to(total, part, k=1):
+        for key, v in part.items():
+            total[key] = total.get(key, 0) + k * v
+
+    # the line steps carry the ell scaling in their last stacked REDC
+    dbl = per(lambda rr: doubling_step(rr, scale=(py, px)), r)
+    addc = per(lambda rr: addition_step(rr, q, scale=(py, px)), r)
+    ell = per(tower.mul_by_014, f, sc2, sc2, sc2)
+    sq = per(tower.square, f)
+    cycsq = per(tower.cyclotomic_square, f)
+    mul = per(tower.mul, f, f)
+    frob = per(tower.frobenius_map, f)
+    # tower.inv's one fp.inv is the product tree whose root Fermat power
+    # serves the whole batch: the tower part is counted with fp.inv stubbed,
+    # the tree added here (about 3 products and REDCs per element, and the
+    # root's power steps over the tree floor's elements, spread over `batch`)
+    orig_inv = fp.inv
+    try:
+        fp.inv = lambda a: a
+        inv12 = per(tower.inv, f)
+    finally:
+        fp.inv = orig_inv
+    e = fp.P - 2
+    pow_steps = (e.bit_length() - 1) + bin(e).count("1") - 1
+    root_elems = min(2 * fp._TREE_FLOOR, batch)
+    tree_cost = 3 + pow_steps * root_elems / batch
+    pow_counts = {"fp_mul": tree_cost, "redc": tree_cost}
+
+    total: dict = {}
+    add_to(total, dbl, 63)          # the doubling steps
+    add_to(total, addc, 5)          # the addition steps
+    add_to(total, ell, 68)          # the Miller loop's ells
+    add_to(total, sq, 62)           # and its squares
+    add_to(total, inv12)            # easy part: the Fq12 inverse...
+    add_to(total, pow_counts)       # ...ending in the batched Fp inverse
+    add_to(total, mul, 2)           # easy part products
+    add_to(total, frob, 2)          # easy part frobenius^2
+    # five Granger-Scott exponentiations by |x|: 63 cyclotomic squares and
+    # 5 products each, and t1pre's one cyclotomic square
+    add_to(total, cycsq, 1)
+    add_to(total, cycsq, 5 * max(_X_SET_BITS))
+    add_to(total, mul, 5 * (len(_X_SET_BITS) - 1))
+    # the hard part's products: 5 steps of 2 (8 of them by one) and the
+    # tail's 8
+    add_to(total, mul, 18)
+    add_to(total, frob, 6)          # the hard part's frobenius powers
+    return total
 
 
 def multi_pairing(ps: list, qs: list) -> torch.Tensor:

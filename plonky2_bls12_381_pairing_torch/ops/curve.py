@@ -21,6 +21,23 @@ def _mask(values, batch_shape, device) -> torch.Tensor:
                       device=fp.resolve_device(device))
 
 
+_GENERATORS: dict = {}
+
+
+def _generator(name: str, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The G1 or G2 generator's encoded coordinates on `device`, uploaded
+    once per device: a later call (the limb prepare_g2's on every pairing)
+    copies nothing from the host, so it also runs under a CUDA graph
+    capture."""
+    dev = fp.resolve_device(device)
+    key = (name, dev)
+    if key not in _GENERATORS:
+        g = rm.G1Affine.generator() if name == "g1" else rm.G2Affine.generator()
+        enc = fp.encode if name == "g1" else fq2.encode
+        _GENERATORS[key] = (fp.to_tensor(enc(g.x), dev), fp.to_tensor(enc(g.y), dev))
+    return _GENERATORS[key]
+
+
 @dataclass
 class G1Affine:
     """x, y: (..., NLIMBS) Montgomery limbs; infinity: (...,) int32 mask."""
@@ -36,10 +53,9 @@ class G1Affine:
 
     @staticmethod
     def generator(batch_shape=(), device=None) -> "G1Affine":
-        g = rm.G1Affine.generator()
-        x = fp.to_tensor(fp.encode(g.x), device).expand(*batch_shape, fp.NLIMBS)
-        y = fp.to_tensor(fp.encode(g.y), device).expand(*batch_shape, fp.NLIMBS)
-        return G1Affine(x, y, _mask(0, batch_shape, device))
+        x, y = _generator("g1", device)
+        return G1Affine(x.expand(*batch_shape, fp.NLIMBS), y.expand(*batch_shape, fp.NLIMBS),
+                        _mask(0, batch_shape, device))
 
     @staticmethod
     def encode(points, device=None) -> "G1Affine":
@@ -106,10 +122,9 @@ class G2Affine:
 
     @staticmethod
     def generator(batch_shape=(), device=None) -> "G2Affine":
-        g = rm.G2Affine.generator()
-        x = fp.to_tensor(fq2.encode(g.x), device).expand(*batch_shape, 2, fp.NLIMBS)
-        y = fp.to_tensor(fq2.encode(g.y), device).expand(*batch_shape, 2, fp.NLIMBS)
-        return G2Affine(x, y, _mask(0, batch_shape, device))
+        x, y = _generator("g2", device)
+        return G2Affine(x.expand(*batch_shape, 2, fp.NLIMBS),
+                        y.expand(*batch_shape, 2, fp.NLIMBS), _mask(0, batch_shape, device))
 
     @staticmethod
     def encode(points, device=None) -> "G2Affine":

@@ -21,7 +21,8 @@ packages bit-identical.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, fields, is_dataclass, replace
 
 import numpy as np
 import torch
@@ -269,13 +270,58 @@ def wrap(a) -> R:
     return R(a, 0, _CH_MAX, 0, STORED)
 
 
+#: Fp-op counters (count_fp_ops): while set, mul_rr and redc add the packed
+#: rows they process, in element units.
+_op_counter: dict | None = None
+
+
+def _count(kind: str, shape) -> None:
+    rows = math.prod(shape[:-1]) if len(shape) > 1 else 1
+    _op_counter[kind] = _op_counter.get(kind, 0) + rows * RC.PACK
+
+
+def _on_cpu(x):
+    """x with every tensor in it (in point dataclasses, lists and tuples)
+    moved to the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if is_dataclass(x) and not isinstance(x, type):
+        return replace(x, **{f.name: _on_cpu(getattr(x, f.name)) for f in fields(x)})
+    if isinstance(x, (list, tuple)):
+        return type(x)(_on_cpu(v) for v in x)
+    return x
+
+
+def count_fp_ops(fn, *args) -> dict:
+    """Exact Fp-op counts of fn's computation in element units (each packed
+    element counted on its own): fp_mul (channel products) and redc
+    (Montgomery reductions), as the JAX package's count_fp_ops gives them.
+
+    Where the JAX package traces fn abstractly, the port runs it: on the CPU,
+    with every tensor of args moved there, so that each dispatching op takes
+    its plain formulas. The kernels never call mul_rr or redc, so a count on
+    the card would miss their work. Run it at one packed row: the plain
+    formulas cost what they count."""
+    global _op_counter
+    prev = _op_counter
+    _op_counter = {}
+    try:
+        fn(*_on_cpu(args))
+        return dict(_op_counter)
+    finally:
+        _op_counter = prev
+
+
 def mul_rr(a: R, b: R) -> R:
     """Channel product; exact while |a_ch*b_ch| < 2^31 (asserted)."""
     am = max(abs(a.lo), abs(a.hi))
     bm = max(abs(b.lo), abs(b.hi))
     assert am * bm < _I32, f"int32 channel product overflow: {am}*{bm}"
     vals = [a.vlo * b.vlo, a.vlo * b.vhi, a.vhi * b.vlo, a.vhi * b.vhi]
-    return R(a.ch * b.ch, -am * bm, am * bm, min(vals), max(vals))
+    out = R(a.ch * b.ch, -am * bm, am * bm, min(vals), max(vals))
+    if _op_counter is not None:
+        _count("fp_mul", out.ch.shape)
+    return out
 
 
 def mul_ss(a, b) -> R:
@@ -349,6 +395,8 @@ def redc(x: R) -> torch.Tensor:
     bounds are cleared with a constant k*p residue row first."""
     x = nonneg(x)
     assert x.vhi <= RC.REDC_MAX, "redc input exceeds MA*p"
+    if _op_counter is not None:
+        _count("redc", x.ch.shape)
     xc = x.canon().ch if redc_needs_canon(x) else x.ch
     # step 1: sigma_i = X * (-p^-1) * (MA/a_i)^-1 mod a_i  (A lanes)
     sigma = barrett(xc * cst(("c_sigma",), xc))

@@ -10,7 +10,7 @@ ops/rns/pallas.py on the pairing's paths) and their plain PyTorch versions.
   kara_full(a, segments)          <- pallas.kara_full_run    (csrc/kara_full.cu)
   pow_static_fused(a, exponent)   <- pallas.pow_static_fused (csrc/pow_static.cu)
   miller_run(f0, coeffs, py, px, skip, flags)
-                                  <- pallas.miller_run, for T >= 1 terms
+                                  <- pallas.miller_run, for 1 <= T <= 64 terms
                                                              (csrc/miller.cu)
   miller_fused(f0, rx, ry, rz, qx, qy, py, px, skip, flags)
                                   <- models/pairing_rns.py miller_loop_fused,
@@ -36,6 +36,7 @@ limb tier's kernels (ops/kernels/) share.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -478,10 +479,11 @@ def miller_run(f0: torch.Tensor, coeffs_stepmajor, py, px, skip,
                do_square_flags) -> torch.Tensor:
     """The Miller accumulation of T >= 1 terms (one ell per term and line
     triple, a square after the steps whose flag is set) from the accumulator
-    f0. coeffs_stepmajor, py, px, skip: one term's tensor each, or lists of
-    T; coeffs (steps, batch..., 3, 2, LANES); py, px, skip (batch...,
-    LANES); f0 (batch..., 12, LANES), any row stride; all int32. The
-    conjugation for a negative loop parameter is the caller's."""
+    f0; one launch takes up to MILLER_MAX_TERMS terms. coeffs_stepmajor, py,
+    px, skip: one term's tensor each, or lists of T; coeffs (steps,
+    batch..., 3, 2, LANES); py, px, skip (batch..., LANES); f0 (batch..., 12,
+    LANES), any row stride; all int32. The conjugation for a negative loop
+    parameter is the caller's."""
     flags = tuple(int(bool(v)) for v in do_square_flags)
     terms = [_as_terms(x) for x in (coeffs_stepmajor, py, px, skip)]
     if len({len(x) for x in terms}) != 1 or not terms[0]:
@@ -494,20 +496,34 @@ def miller_run(f0: torch.Tensor, coeffs_stepmajor, py, px, skip,
     return _miller_run_kernel(f0, terms, flags)
 
 
+#: Terms one miller_run launch takes (csrc/miller.cu MILLER_MAX_TERMS).
+MILLER_MAX_TERMS = 64
+
+
+class _MillerTerms(ctypes.Structure):
+    """csrc/miller.cu's Terms: per term the pointers of its step-major
+    coefficients, P.y, P.x and skip mask, passed by value in the launch's
+    parameters."""
+
+    _fields_ = [("t", _PTR * (4 * MILLER_MAX_TERMS))]
+
+
 def _miller_run_kernel(f0: torch.Tensor, terms: list, flags: tuple) -> torch.Tensor:
     """miller_run's launch: the terms' (coeffs, py, px, skip) pointers go to
-    the kernel as a (T, 4) int64 table on the device."""
+    the kernel by value in its parameters, so that nothing is copied to the
+    card for them (and a CUDA graph replays the launch as captured)."""
     batch = tuple(terms[1][0].shape[:-1])
-    ptrs = []
-    for c, y, x, sk in zip(*terms):
+    n = len(terms[0])
+    if n > MILLER_MAX_TERMS:
+        raise ValueError(f"miller_run takes at most {MILLER_MAX_TERMS} terms, got {n}")
+    arg = _MillerTerms()
+    for i, (c, y, x, sk) in enumerate(zip(*terms)):
         _check(c, (len(flags), *batch, 3, 2, LANES))
-        ptrs.append([c.data_ptr()] + [_row_operand(t, batch).data_ptr() for t in (y, x, sk)])
-    # pinned, so that the copy does not wait for the stream
-    table = torch.tensor(ptrs, dtype=torch.int64,
-                         pin_memory=f0.device.type == "cuda").to(f0.device, non_blocking=True)
+        arg.t[4 * i:4 * i + 4] = [c.data_ptr()] + [_row_operand(t, batch).data_ptr()
+                                                   for t in (y, x, sk)]
     f0v, stride = _rows(f0, batch, (12, LANES))
     out = torch.empty((*batch, 12, LANES), dtype=torch.int32, device=f0.device)
-    _call("miller_run", f0.device, f0v.data_ptr(), stride, table.data_ptr(), len(ptrs),
+    _call("miller_run", f0.device, f0v.data_ptr(), stride, ctypes.addressof(arg), n,
           _int_arg(("flags", flags), flags, f0.device).data_ptr(), len(flags),
           out.data_ptr(), math.prod(batch))
     return out

@@ -41,6 +41,31 @@ def _t(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
+def _rows(batch_shape) -> tuple:
+    """Element batch shape -> packed row shape (axis 0 halved)."""
+    if not batch_shape:
+        return ()
+    return (-(-batch_shape[0] // RC.PACK),) + tuple(batch_shape[1:])
+
+
+def _slot_any(t: torch.Tensor) -> torch.Tensor:
+    """Packed lane mask (..., LANES) -> per-element bools (..., PACK)."""
+    return (t.reshape(*t.shape[:-1], RC.PACK, RC.SUB) != 0).any(dim=-1)
+
+
+def _points_equal(a, b, coords: torch.Tensor) -> torch.Tensor:
+    """Per packed element (..., PACK): both points at infinity, or neither
+    and their coordinates equal (coords)."""
+    ai, bi = _slot_any(a.infinity), _slot_any(b.infinity)
+    return (ai & bi) | (~ai & ~bi & coords)
+
+
+def _filled(tag, np_val, rows: tuple, tail: tuple, device) -> torch.Tensor:
+    """A constant (cached per device) broadcast to (*rows, *tail), as a new
+    contiguous tensor: the kernels take these operands as dense rows."""
+    return fp.const_on(tag, device, np_val).expand(*rows, *tail).clone()
+
+
 def _fq2_encode(x: rm.Fq2) -> np.ndarray:
     return np.stack([fp.encode(x.c0), fp.encode(x.c1)])
 
@@ -57,6 +82,37 @@ class G1Affine:
     x: torch.Tensor
     y: torch.Tensor
     infinity: torch.Tensor
+
+    @staticmethod
+    def generator(batch_shape=(), device=None) -> "G1Affine":
+        """The generator at every element of `batch_shape` (packed two to a
+        row), on the card unless `device` names another."""
+        dev = fp.resolve_device(device)
+        g = rm.G1Affine.generator()
+        rows = _rows(batch_shape)
+        return G1Affine(_filled(("g1_gen_x",), fp.encode(g.x), rows, (LANES,), dev),
+                        _filled(("g1_gen_y",), fp.encode(g.y), rows, (LANES,), dev),
+                        torch.zeros((*rows, LANES), dtype=torch.int32, device=dev))
+
+    @staticmethod
+    def identity(batch_shape=(), device=None) -> "G1Affine":
+        """The point at infinity, (0, 1) with the infinity mask set."""
+        dev = fp.resolve_device(device)
+        rows = _rows(batch_shape)
+        return G1Affine(torch.zeros((*rows, LANES), dtype=torch.int32, device=dev),
+                        _filled(("one",), None, rows, (LANES,), dev),
+                        torch.ones((*rows, LANES), dtype=torch.int32, device=dev))
+
+    def conditional_select(self, mask, other: "G1Affine") -> "G1Affine":
+        """mask: packed lane mask (rows..., LANES); != 0 selects self."""
+        m = mask != 0
+        return G1Affine(torch.where(m, self.x, other.x), torch.where(m, self.y, other.y),
+                        torch.where(m, self.infinity, other.infinity))
+
+    def is_point_equal_to(self, other: "G1Affine") -> torch.Tensor:
+        """Equality with infinity handled, per packed element (..., PACK)."""
+        return _points_equal(self, other,
+                             fp.is_equal(self.x, other.x) & fp.is_equal(self.y, other.y))
 
     @staticmethod
     def encode(points, device=None) -> "G1Affine":
@@ -77,6 +133,31 @@ class G2Affine:
     x: torch.Tensor  # (..., 2, LANES)
     y: torch.Tensor
     infinity: torch.Tensor
+
+    @staticmethod
+    def generator(batch_shape=(), device=None) -> "G2Affine":
+        """The generator at every element of `batch_shape` (packed two to a
+        row), on the card unless `device` names another."""
+        dev = fp.resolve_device(device)
+        g = rm.G2Affine.generator()
+        rows = _rows(batch_shape)
+        return G2Affine(_filled(("g2_gen_x",), _fq2_encode(g.x), rows, (2, LANES), dev),
+                        _filled(("g2_gen_y",), _fq2_encode(g.y), rows, (2, LANES), dev),
+                        torch.zeros((*rows, LANES), dtype=torch.int32, device=dev))
+
+    @staticmethod
+    def identity(batch_shape=(), device=None) -> "G2Affine":
+        """The point at infinity, (0, 1) with the infinity mask set."""
+        dev = fp.resolve_device(device)
+        rows = _rows(batch_shape)
+        return G2Affine(torch.zeros((*rows, 2, LANES), dtype=torch.int32, device=dev),
+                        _filled(("one2",), _ONE2, rows, (2, LANES), dev),
+                        torch.ones((*rows, LANES), dtype=torch.int32, device=dev))
+
+    def is_point_equal_to(self, other: "G2Affine") -> torch.Tensor:
+        """Equality with infinity handled, per packed element (..., PACK)."""
+        return _points_equal(self, other, fp.is_equal(self.x, other.x).all(dim=-2)
+                             & fp.is_equal(self.y, other.y).all(dim=-2))
 
     @staticmethod
     def encode(points, device=None) -> "G2Affine":
@@ -123,6 +204,20 @@ class G2Projective:
         one2 = fp.const_on(("one2",), q.x.device, _ONE2).expand(q.x.shape)
         z = torch.where(q.infinity[..., None, :] != 0, torch.zeros_like(q.x), one2)
         return G2Projective(q.x, q.y, z)
+
+    @staticmethod
+    def identity(batch_shape=(), device=None) -> "G2Projective":
+        """The point at infinity, (0, 1, 0)."""
+        dev = fp.resolve_device(device)
+        rows = _rows(batch_shape)
+        zero2 = torch.zeros((*rows, 2, LANES), dtype=torch.int32, device=dev)
+        return G2Projective(zero2, _filled(("one2",), _ONE2, rows, (2, LANES), dev),
+                            zero2.clone())
+
+    @staticmethod
+    def generator(batch_shape=(), device=None) -> "G2Projective":
+        """The generator with z = 1."""
+        return G2Projective.from_affine(G2Affine.generator(batch_shape, device))
 
 
 # ---------------------------------------------------------------------------

@@ -141,6 +141,11 @@ _ONE12 = np.zeros((12, LANES), dtype=np.int32)
 _ONE12[0] = RC.ONE
 
 
+def zero(batch_shape=(), device=None) -> torch.Tensor:
+    return torch.zeros((*batch_shape, 12, LANES), dtype=torch.int32,
+                       device=fp.resolve_device(device))
+
+
 def one(batch_shape=(), device=None) -> torch.Tensor:
     o = fp.const_on(("one12",), fp.resolve_device(device), _ONE12)
     return o.expand(*batch_shape, 12, LANES)
@@ -592,3 +597,13 @@ def inv(a: torch.Tensor) -> torch.Tensor:
     out0 = _fq6_mul(a0, ti)
     out1 = _fq6_mul([fp.neg_r(x, 4) for x in a1], ti)
     return fp.redc_stack(out0 + out1)
+
+
+def div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a / b = a * b^-1 (b = 0 gives 0: inv maps 0 to 0)."""
+    return mul(a, inv(b))
+
+
+def conditional_mul(a: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """a * x where the packed lane mask (..., LANES) is set, else a."""
+    return select(mask, mul(a, x), a)
