@@ -64,7 +64,26 @@ Phases (any failure exits non-zero; nothing is caught):
      the eager call on the same inputs, 2048/2048 bit for bit, and to the
      path's own check (the oracle and the frozen vectors, or the checks'
      expected truth); time captured against eager calls, profile one replay,
-     and report the capture's seconds and memory.
+     and report the capture's seconds and memory;
+  6. the witness trace and checkpoint/resume (models/witness.py,
+     utils/checkpoint.py) at B = 2048 on the run's points:
+       (a) the traced RNS `pairing`, eager and captured (trace(jit=True)):
+         its output the untraced pairing(impl="karabina")'s rows and the
+         default pairing's values, 2048/2048; rns_mul / rns_inv records as
+         the product trees and select-form Fermat chains give them, and at
+         one packed row the CPU trace's counts and rows; check_trace all
+         zeros, eager and captured, the captured rows the eager rows; one
+         corrupted row per kind rejected; export_rows_u32 of every kind;
+       (b) the hints at 2048 elements against the oracle: RNS sqrt_with_sgn,
+         fq2.sqrt_with_sgn and fq2.inv, limb sqrt_with_sgn, fq2 sqrt, fq6 and
+         fq12 inverses, traced, checked and exported (rns_sqrt and
+         rns_fq2_sqrt included);
+       (c) the traced limb `pairing` under "auto" (its Fermat chain as
+         mont_mul launches), checked, against the oracle;
+       (d) kill and resume on both tiers (every=17, fail_after_steps=17):
+         the resumed rows the uninterrupted path's, 2048/2048, four
+         miller_run launches per full RNS run; ms per chunk and the cost of
+         a save and a load.
 The second-to-last lines are the card's name and power limit and a JSON
 object with each kernel's numbers; the last line is
 {"ok": true, "device": {...}}.
@@ -74,6 +93,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -91,6 +111,7 @@ from plonky2_bls12_381_pairing_torch import constants as LC
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models import pairing as lmp
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
+from plonky2_bls12_381_pairing_torch.models import witness
 from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _GS_SEGMENTS,
                                                              _IS_ADD, _KARA_SEGMENTS)
 from plonky2_bls12_381_pairing_torch.ops import cuda_build
@@ -102,7 +123,9 @@ from plonky2_bls12_381_pairing_torch.ops import fq12 as lfq12
 from plonky2_bls12_381_pairing_torch.ops.kernels import mont as lmont
 from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
 from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernel_tables, kernels, tower
+from plonky2_bls12_381_pairing_torch.ops.rns import fq2 as rfq2
 from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
+from plonky2_bls12_381_pairing_torch.utils import checkpoint
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 from plonky2_bls12_381_pairing_torch.utils.capture import capture
 from plonky2_bls12_381_pairing_torch.utils.profiling import (REDC_ROW, TC_OPS_PER_EXT_MAC, Work,
@@ -556,11 +579,10 @@ EXPECTED_LAUNCHES = {
 }
 #: Kernels that no path launches: the Miller loops' ell and square, which
 #: the Miller kernels now do inside (tower.mul_by_014 / square /
-#: mul_by_014_square keep them for their other callers), and the limb
-#: mont_mul, whose one chain on the paths (fp.inv) is now the mont_pow
-#: kernel (fp.to_mont, from_mont and G1Affine.is_on_curve keep it); phase 2
-#: holds them to their plain versions all the same.
-OFF_PATH = ("fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square", "mont_mul")
+#: mul_by_014_square keep them for their other callers); phase 2 holds them
+#: to their plain versions all the same. (The limb mont_mul is on phase 6's
+#: paths: a traced Fermat chain and sgn0's from_mont.)
+OFF_PATH = ("fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square")
 # The limb tier. Under "auto" every product is composed of conv and
 # mont_reduce launches: one conv launch per group of independent products
 # (fp.form), one mont_reduce launch per stacked reduction; the Fermat
@@ -611,6 +633,50 @@ EXPECTED_LAUNCHES.update({
     "limb_pairing_fused": limb_launches("fused", 1),
     "limb_pairing_check_2_fused": limb_launches("fused", 2),
 })
+
+# Phase 6. A trace runs the RNS exponentiations as "karabina" (kara_exp
+# stays a kernel) and each Fermat chain as its recording loop: the RNS
+# chains as plain products, the limb chain as one mont_mul launch per
+# product (two per bit of p - 2 after its leading one); every other kernel
+# as untraced.
+FERMAT_PRODUCTS = 2 * ((rm.P - 2).bit_length() - 1)
+_TRACED_FINAL_EXP = {k: v for k, v in final_exp_launches("karabina").items()
+                     if k != "pow_static"}
+_LIMB_TRACED = {**limb_launches("auto", 1), "mont_pow": 0, "mont_mul": FERMAT_PRODUCTS}
+EXPECTED_LAUNCHES.update({
+    "witness_pairing": {**_TRACED_FINAL_EXP, "miller_fused": 1},
+    # the warm-up call and the captured call (a replay launches nothing)
+    "witness_pairing_captured": {k: 2 * v for k, v in _TRACED_FINAL_EXP.items()}
+    | {"miller_fused": 2},
+    "witness_limb_pairing": _LIMB_TRACED,
+    # the hints, untraced: the Fermat chains are kernels again
+    "hint_rns_sqrt": {"pow_static": 1},
+    "hint_rns_fq2_sqrt": {},
+    "hint_rns_fq2_inv": {"pow_static": 1},
+    "hint_limb_sqrt": {"mont_pow": 1, "mont_mul": 1},
+    "hint_limb_fq2_sqrt": {"conv": None, "mont_reduce": None, "mont_mul": 2},
+    "hint_limb_fq6_inv": {"conv": None, "mont_reduce": None, "mont_pow": 1},
+    "hint_limb_fq12_inv": {"conv": None, "mont_reduce": None, "mont_pow": 1},
+    # checkpointed runs, 68 steps in chunks of 17: one miller_run per chunk
+    "checkpoint_rns_kill": {"miller_run": 1},
+    "checkpoint_rns_resume": {**_FINAL_EXP, "miller_run": 3},
+    "checkpoint_rns": {**_FINAL_EXP, "miller_run": 4},
+    "checkpoint_limb_kill": {"conv": None, "mont_reduce": None},
+    "checkpoint_limb_resume": {"conv": None, "mont_reduce": None, "mont_pow": 1},
+})
+
+
+def inv_mul_records(n: int) -> int:
+    """rns_mul records of one traced fp.inv of n rows: per level of the
+    product tree above its 128-row floor one product up and two down, and
+    the select-form Fermat chain's products."""
+    size, levels = 1, 0
+    while size < n:
+        size *= 2
+    while size > fp._TREE_FLOOR:
+        size //= 2
+        levels += 1
+    return 3 * levels + FERMAT_PRODUCTS
 
 
 def drive(name: str, run):
@@ -731,6 +797,301 @@ def capture_phase(card: str, paths: dict) -> dict:
         del step, replays, got, want
         mark(f"captured {name}")
     return out
+
+
+def sgn0_fq2(z: rm.Fq2) -> int:
+    """The RFC 9380 sign of an Fq2 element."""
+    return (z.c0 & 1) | (int(z.c0 == 0) & (z.c1 & 1))
+
+
+def rows_of(p, n: int):
+    """The first n rows of a point dataclass's tensors (n packed rows on the
+    RNS tier)."""
+    return type(p)(**{k: getattr(p, k)[:n] for k in ("x", "y", "infinity")})
+
+
+def traces_equal(a: witness.WitnessTrace, b: witness.WitnessTrace) -> bool:
+    """The same kinds, counts and rows, bit for bit (on the CPU)."""
+    if a.counts() != b.counts():
+        return False
+    return all(torch.equal(x.cpu(), y.cpu())
+               for op in a.rows for ra, rb in zip(a.rows[op], b.rows[op])
+               for x, y in zip(ra, rb))
+
+
+def recorded_rows(rows: list) -> int:
+    """Rows of a kind's records: packed RNS rows or limb elements of each
+    record's first slot."""
+    return sum(max(1, math.prod(r[0].shape[:-1])) for r in rows)
+
+
+def check_clean(name: str, tr: witness.WitnessTrace) -> float:
+    """check_trace all zeros; its ms per 1,000 recorded rows on the host
+    clock."""
+    n = sum(recorded_rows(rows) for rows in tr.rows.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    result = witness.check_trace(tr)
+    ms = (time.perf_counter() - t) * 1e3
+    print(f"[{name}] check_trace {result} over {n} rows in {ms:.1f} ms "
+          f"({ms / n * 1e3:.4f} ms per 1k rows)")
+    assert result and all(v == 0 for v in result.values()), (name, result)
+    return ms / n * 1e3
+
+
+def corrupted_rejected(name: str, tr: witness.WitnessTrace) -> None:
+    """One residue or limb of each kind's first output + 1 is rejected."""
+    for op, rows in tr.rows.items():
+        row = list(rows[0])
+        bad = row[-1].clone()
+        bad.view(-1)[0] += 1
+        one = witness.WitnessTrace()
+        one.add(op, tuple(row[:-1]) + (bad,))
+        n = witness.check_trace(one)[op]
+        print(f"[{name}] one corrupted {op} row: {n} rows rejected")
+        assert n > 0, (name, op)
+
+
+def export_all(name: str, tr: witness.WitnessTrace) -> float:
+    """export_rows_u32 of every kind; ms per 1,000 recorded rows."""
+    n = sum(recorded_rows(rows) for rows in tr.rows.values())
+    t = time.perf_counter()
+    ex = witness.export_rows_u32(tr)
+    ms = (time.perf_counter() - t) * 1e3
+    for op, rows in ex.items():
+        assert len(rows) == len(tr.rows[op])
+        for i, slot in enumerate(rows[0]):
+            flag = i in witness._FLAG_SLOTS.get(op, ())
+            assert flag or (slot.dtype == np.uint32 and slot.shape[-1] == witness.U32_LIMBS)
+    print(f"[{name}] export_rows_u32 of {sorted(ex)}: {n} rows in {ms:.1f} ms "
+          f"({ms / n * 1e3:.4f} ms per 1k rows)")
+    return ms / n * 1e3
+
+
+def witness_phase(card: str, drive, path_counts: dict, pts: dict) -> dict:
+    """Phase 6 (module docstring): the witness trace and checkpoint/resume
+    on both tiers at B = 2048. pts: the run's RNS and limb points, the
+    untraced rows they are held to, and the oracle's rows."""
+    dev = pts["p"].x.device
+    rows = pts["p"].x.shape[0]
+    res: dict = {"card": card}
+    # (a) the traced RNS pairing, eager
+    p, q, want_rows = pts["p"], pts["q"], pts["want_rows"]
+    (out_t, tr), path_counts["witness_pairing"] = drive(
+        "witness_pairing", lambda: witness.trace(mpr.pairing, p, q))
+    n_rows = elements_equal(out_t, pts["karabina"])
+    n_val = int(tower.is_equal(out_t, pts["pairing"]).reshape(-1)[:BATCH].sum().item())
+    print(f"[witness_pairing] rows of pairing(impl='karabina') on {n_rows}/{BATCH}, "
+          f"values of pairing on {n_val}/{BATCH}; records {tr.counts()}")
+    assert n_rows == BATCH and n_val == BATCH
+    want_counts = {"rns_mul": inv_mul_records(rows) + 5 * inv_mul_records(6 * rows),
+                   "rns_inv": 6}
+    assert tr.counts() == want_counts, (tr.counts(), want_counts)
+    # at one packed row, the CPU trace's kinds, counts and rows
+    p1, q1 = rows_of(p, 1), rows_of(q, 1)
+    _, tr1 = witness.trace(mpr.pairing, p1, q1)
+    _, tr1_cpu = witness.trace(mpr.pairing, fp._on_cpu(p1), fp._on_cpu(q1))
+    same1 = traces_equal(tr1, tr1_cpu)
+    print(f"[witness_pairing] one packed row: card {tr1.counts()}, CPU "
+          f"{tr1_cpu.counts()}, rows identical: {same1}")
+    assert same1
+    del tr1, tr1_cpu
+    res["check_ms_per_1k_rows"] = check_clean("witness_pairing", tr)
+    corrupted_rejected("witness_pairing", tr)
+    res["export_ms_per_1k_rows"] = export_all("witness_pairing", tr)
+    # and captured: the sink on only while the graph is captured
+    (out_c, tr_c), path_counts["witness_pairing_captured"] = drive(
+        "witness_pairing_captured", lambda: witness.trace(mpr.pairing, p, q, jit=True))
+    same = torch.equal(out_c, out_t) and traces_equal(tr_c, tr)
+    print(f"[witness_pairing_captured] output and every recorded row the eager trace's: "
+          f"{same}")
+    assert same
+    check_clean("witness_pairing_captured", tr_c)
+    del tr_c, out_c
+    traced = host_times(lambda: witness.trace(mpr.pairing, p, q), 3)
+    untraced = host_times(lambda: mpr.pairing(p, q, impl="karabina"), 3)
+    default = host_times(lambda: mpr.pairing(p, q), 3)
+    res["traced_ms"], res["untraced_karabina_ms"] = (statistics.median(traced),
+                                                     statistics.median(untraced))
+    res["untraced_ms"] = statistics.median(default)
+    res["records_per_call"] = tr.counts()
+    res["rows_per_call"] = {op: recorded_rows(rs) for op, rs in tr.rows.items()}
+    print(f"[witness_pairing] B={BATCH}: traced {res['traced_ms']:.1f} ms per call, "
+          f"untraced pairing(impl='karabina') {res['untraced_karabina_ms']:.1f} ms, "
+          f"pairing {res['untraced_ms']:.1f} ms (median of 3); rows per call "
+          f"{res['rows_per_call']}; on {card}")
+    del tr, out_t
+    torch.cuda.empty_cache()
+    mark("the traced RNS pairing")
+
+    # (b) the hints at 2048 elements against the oracle
+    rng = np.random.default_rng(0x6E)
+
+    def ints(n):
+        return [int.from_bytes(rng.bytes(48), "little") % rm.P for _ in range(n)]
+
+    def fq2s(n):
+        return [rm.Fq2(*ints(2)) for _ in range(n)]
+
+    def enc2(zs):
+        arr = np.empty((len(zs), 2), dtype=object)
+        for i, z in enumerate(zs):
+            arr[i, 0], arr[i, 1] = z.c0, z.c1
+        return torch.from_numpy(fp.encode(arr)).to(dev)
+
+    def dec2(t):
+        v = fp.decode(t)
+        return [rm.Fq2(int(v[i, 0]), int(v[i, 1])) for i in range(BATCH)]
+
+    xs = ints(BATCH)
+    xs[7] = 0
+    sq = [x * x % rm.P for x in xs]
+    sgn = rng.integers(0, 2, BATCH).astype(np.int32)
+    sgn[[3, 7]] = 0  # a zero root's sign is 0: the constraint a trace checks
+    sgn_packed = torch.from_numpy(sgn.reshape(-1, RC.PACK).copy()).to(dev)
+    z2 = fq2s(BATCH)
+    z2[3] = rm.Fq2(0, 0)
+    sq2 = [z.square() for z in z2]
+    hints = {
+        "hint_rns_sqrt": (lambda: fp.sqrt_with_sgn(torch.from_numpy(fp.encode(sq)).to(dev),
+                                                   sgn_packed),
+                          lambda out: [int(v) for v in fp.decode(out)[:BATCH]],
+                          lambda r: all(v * v % rm.P == s and (v & 1 == g or v == 0)
+                                        for v, s, g in zip(r, sq, sgn))),
+        "hint_rns_fq2_sqrt": (lambda: rfq2.sqrt_with_sgn(enc2(sq2), sgn_packed), dec2,
+                              lambda r: all(v.square() == s and (sgn0_fq2(v) == g
+                                                                 or v == rm.Fq2(0, 0))
+                                            for v, s, g in zip(r, sq2, sgn))),
+        "hint_rns_fq2_inv": (lambda: rfq2.inv(enc2(z2)), dec2,
+                             lambda r: all((v * z == rm.Fq2(1, 0)) or (z == rm.Fq2(0, 0)
+                                                                      and v == z)
+                                           for v, z in zip(r, z2))),
+    }
+    lx = torch.from_numpy(lfp.encode(sq)).to(dev)
+    lsgn = torch.from_numpy(sgn).to(dev)
+    lz2 = torch.from_numpy(lfq2.encode(sq2)).to(dev)
+    r6 = [rm.Fq6(*fq2s(3)) for _ in range(BATCH)]
+    r12 = [rm.Fq12(rm.Fq6(*fq2s(3)), rm.Fq6(*fq2s(3))) for _ in range(BATCH)]
+    hints.update({
+        "hint_limb_sqrt": (lambda: lfp.sqrt_with_sgn(lx, lsgn),
+                           lambda out: [int(v) for v in lfp.decode(out)],
+                           hints["hint_rns_sqrt"][2]),
+        "hint_limb_fq2_sqrt": (lambda: lfq2.sqrt_with_sgn(lz2, lsgn),
+                               lambda out: list(lfq2.decode(out)), hints["hint_rns_fq2_sqrt"][2]),
+        "hint_limb_fq6_inv": (lambda: lfq6.inv(torch.from_numpy(lfq6.encode(r6)).to(dev)),
+                              lambda out: list(lfq6.decode(out)),
+                              lambda r: all(v * x == rm.Fq6.one() for v, x in zip(r, r6))),
+        "hint_limb_fq12_inv": (lambda: lfq12.inv(torch.from_numpy(lfq12.encode(r12)).to(dev)),
+                               lambda out: list(lfq12.decode(out)),
+                               lambda r: all(v * x == rm.Fq12.one() for v, x in zip(r, r12))),
+    })
+    res["hints_ms"] = {}
+    for name, (run, decode, ok) in hints.items():
+        out, path_counts[name] = drive(name, run)
+        good = ok(decode(out))
+        ms = statistics.median(host_times(run, 3))
+        res["hints_ms"][name] = ms
+        print(f"[{name}] {BATCH} elements against the oracle: {good}; {ms:.1f} ms per call "
+              f"on {card}")
+        assert good, name
+    # traced, the sqrt and inverse hints leave their kinds' rows; exported,
+    # the RNS sign slots pass through
+    _, htr = witness.trace(lambda: (hints["hint_rns_sqrt"][0](), hints["hint_rns_fq2_sqrt"][0](),
+                                    hints["hint_rns_fq2_inv"][0](), hints["hint_limb_sqrt"][0](),
+                                    hints["hint_limb_fq2_sqrt"][0](),
+                                    hints["hint_limb_fq6_inv"][0]()))
+    print(f"[hints] traced: {htr.counts()}")
+    assert {"rns_sqrt", "rns_fq2_sqrt", "rns_fq2_inv", "sqrt", "fq2_sqrt",
+            "fq6_inv"} <= set(htr.counts())
+    check_clean("hints", htr)
+    corrupted_rejected("hints", htr)
+    export_all("hints", htr)
+    del htr
+    torch.cuda.empty_cache()
+    mark("the hints")
+
+    # (c) the traced limb pairing under "auto"
+    lp, lq = pts["lp"], pts["lq"]
+    (lout, ltr), path_counts["witness_limb_pairing"] = drive(
+        "witness_limb_pairing", lambda: witness.trace(lmp.pairing, lp, lq))
+    got = lfp.decode(lout)
+    bad = [i for i in range(BATCH) if list(got[i]) != want_rows[i]]
+    print(f"[witness_limb_pairing] vs oracle: {BATCH - len(bad)}/{BATCH} bit-exact; records "
+          f"{ltr.counts()}")
+    assert not bad and ltr.counts()["mul"] == FERMAT_PRODUCTS
+    check_clean("witness_limb_pairing", ltr)
+    corrupted_rejected("witness_limb_pairing", ltr)
+    res["limb_traced_ms"] = statistics.median(host_times(lambda: witness.trace(lmp.pairing,
+                                                                               lp, lq), 3))
+    res["limb_untraced_ms"] = statistics.median(host_times(lambda: lmp.pairing(lp, lq), 3))
+    print(f"[witness_limb_pairing] B={BATCH}: traced {res['limb_traced_ms']:.1f} ms per call, "
+          f"untraced {res['limb_untraced_ms']:.1f} ms (median of 3) on {card}")
+    del ltr, lout
+    mark("the traced limb pairing")
+
+    # (d) kill and resume on both tiers
+    ckdir = Path(__file__).resolve().parent / "chiprun_out" / "checkpoints"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    prepared = mpr.prepare_g2_stepmajor(q)
+    lprepared = lmp.prepare_g2(lq)
+    tiers = {
+        "rns": (lambda path, **kw: checkpoint.run_pairing_checkpointed_rns(
+            p, prepared, q.infinity, ckpt_path=path, **kw), pts["pairing"]),
+        "limb": (lambda path, **kw: checkpoint.run_pairing_checkpointed(
+            lp, lprepared, lq.infinity, ckpt_path=path, **kw), lmp.pairing(lp, lq)),
+    }
+    for tier, (run, want) in tiers.items():
+        path = str(ckdir / f"{tier}.npz")
+        if os.path.exists(path):
+            os.remove(path)
+
+        def kill():
+            try:
+                run(path, every=17, fail_after_steps=17)
+            except RuntimeError as err:
+                assert "injected failure" in str(err)
+                return None
+            raise AssertionError("fail_after_steps did not stop the run")
+
+        _, path_counts[f"checkpoint_{tier}_kill"] = drive(f"checkpoint_{tier}_kill", kill)
+        _, start = checkpoint.load_state(path)
+        assert start == 17
+        got, path_counts[f"checkpoint_{tier}_resume"] = drive(
+            f"checkpoint_{tier}_resume", lambda: run(path, every=17))
+        n_eq = elements_equal(got, want)
+        print(f"[checkpoint_{tier}] killed after step 17, resumed: rows of the uninterrupted "
+              f"path on {n_eq}/{BATCH}")
+        assert n_eq == BATCH and torch.equal(got, want)
+    full_path = ckdir / "full.npz"
+    if full_path.exists():
+        full_path.unlink()
+    full, path_counts["checkpoint_rns"] = drive(
+        "checkpoint_rns", lambda: tiers["rns"][0](str(full_path), every=17))
+    assert torch.equal(full, pts["pairing"])
+    # a chunk's cost beside a save and a load of its state
+    skip = ((p.infinity != 0) | (q.infinity != 0)).to(torch.int32)
+    f0 = tower.one((rows,), dev)
+    chunk = time_kernel(lambda i: kernels.miller_run(f0, prepared[:17], p.y, p.x, skip,
+                                                     _DO_SQUARE[:17]), 5)
+    scaled = lmp.stack_steps(lmp.scale_all_coeffs(lp, lprepared, lq.infinity)[1])
+    lf0 = lfq12.one((), dev).expand(BATCH, 12, LC.NLIMBS)
+    lchunk = statistics.median(host_times(lambda: lmp.miller_steps(lf0, scaled[:17],
+                                                                   _DO_SQUARE[:17]), 3))
+    state = str(ckdir / "state.npz")
+    facc = f0.contiguous()
+    save = statistics.median(host_times(lambda: checkpoint.save_state(state, facc, 17), 3))
+    load = statistics.median(host_times(
+        lambda: torch.from_numpy(checkpoint.load_state(state)[0]).to(dev), 3))
+    res["checkpoint"] = {"rns_chunk_ms": chunk, "limb_chunk_ms": lchunk, "save_ms": save,
+                         "load_ms": load, "state_bytes": f0.numel() * 4,
+                         "chunks_per_run": 4}
+    print(f"[checkpoint] 17-step chunk: RNS one miller_run {chunk:.3f} ms (device), limb "
+          f"{lchunk:.1f} ms (host clock); save {save:.1f} ms, load {load:.1f} ms of the "
+          f"{f0.numel() * 4 / 2**20:.1f} MiB RNS state; on {card}")
+    for f in ckdir.glob("*.npz"):
+        f.unlink()
+    mark("checkpoint and resume")
+    return res
 
 
 def main() -> int:
@@ -1523,6 +1884,12 @@ def main() -> int:
         }
         captured = capture_phase(card, capture_paths)
         print(json.dumps({"capture": captured}))
+
+        # -- 6. the witness trace and checkpoint/resume ----------------------
+        wres = witness_phase(card, drive, path_counts, {
+            "p": p_dev, "q": q_dev, "lp": lp_dev, "lq": lq_dev, "pairing": out,
+            "karabina": outk, "want_rows": want_rows})
+        print(json.dumps({"witness": wres}))
 
     all_kernels = cuda_build.all_launches()
     for name in all_kernels:

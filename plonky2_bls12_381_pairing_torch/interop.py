@@ -76,3 +76,22 @@ def coeffs_limb_from_numpy(coeffs, device=None) -> torch.Tensor:
     """Prepared line coefficients (..., 68, 3, 2, 48), as prepare_g2 returns
     them in either package's limb tier."""
     return _tensor(coeffs, device)
+
+
+# ---------------------------------------------------------------------------
+# Witness rows
+# ---------------------------------------------------------------------------
+
+
+def trace_from_numpy(rows: dict, device=None):
+    """The JAX package's WitnessTrace rows ({kind: list of row tuples}, each
+    array as numpy) as this package's models/witness.WitnessTrace, so that
+    its check_trace and export_rows_u32 run on rows the JAX package
+    recorded."""
+    from .models.witness import WitnessTrace
+
+    tr = WitnessTrace()
+    for op, op_rows in rows.items():
+        for r in op_rows:
+            tr.add(op, tuple(_tensor(t, device) for t in r))
+    return tr

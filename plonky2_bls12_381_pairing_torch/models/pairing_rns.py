@@ -221,7 +221,14 @@ def cyclotomic_exp(f: torch.Tensor, impl: str = "segments") -> torch.Tensor:
                        segment;
       "karabina_full"  all of that in one kernel (kernels.kara_full).
     All give the same value; the first three the same rows, and "karabina"
-    and "karabina_runs" the same rows."""
+    and "karabina_runs" the same rows. While a witness trace records
+    (models/witness.py), every impl runs as "karabina": the JAX package's
+    trace takes its Karabina form, whose decompressions' inversions are
+    recorded rows."""
+    if impl not in EXP_IMPLS:
+        raise ValueError(f"impl must be one of {EXP_IMPLS}, got {impl!r}")
+    if fp._witness_sink is not None:
+        impl = "karabina"
     if impl == "segments":
         out = kernels.cyc_exp(f, _GS_SEGMENTS)
     elif impl == "cond":
@@ -236,10 +243,8 @@ def cyclotomic_exp(f: torch.Tensor, impl: str = "segments") -> torch.Tensor:
         out = _karabina_exp(f, lambda c: kernels.kara_exp(c, _KARA_SEGMENTS))
     elif impl == "karabina_runs":
         out = _karabina_exp(f, _kara_chain_runs)
-    elif impl == "karabina_full":
-        out = kernels.kara_full(f, _KARA_SEGMENTS)
     else:
-        raise ValueError(f"impl must be one of {EXP_IMPLS}, got {impl!r}")
+        out = kernels.kara_full(f, _KARA_SEGMENTS)
     return tower.conjugate(out)
 
 

@@ -598,14 +598,28 @@ def mont_reduce_stack(wides: list[Wide], axis: int = -2) -> torch.Tensor:
     return mont_reduce(merged)
 
 
+#: Witness-trace sink (models/witness.py): while it is a list, the recording
+#: ops append (kind, (inputs..., output)) rows: mont_mul "mul", inv "inv",
+#: sqrt_with_sgn "sqrt", connect "connect", and the Fq2/Fq6/Fq12 hints.
+_witness_sink = None
+
+
+def _record(op: str, *tensors) -> None:
+    if _witness_sink is not None:
+        _witness_sink.append((op, tensors))
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a*b*R^-1) mod p on stored Montgomery operands — the Fp product. On a
     CUDA tensor one fused kernel, whose rows are mont_reduce(conv(a, b))'s."""
     if _use_kernels(a):
         from .kernels import mont as _km
 
-        return _km.mont_mul(a, b)
-    return mont_reduce(conv(a, b))
+        out = _km.mont_mul(a, b)
+    else:
+        out = mont_reduce(conv(a, b))
+    _record("mul", a, b, out)
+    return out
 
 
 def mont_square(a: torch.Tensor) -> torch.Tensor:
@@ -700,10 +714,13 @@ def is_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent by MSB-first square-and-multiply over the static bits.
     Montgomery in, Montgomery out. On a CUDA tensor the whole chain of
-    mont_mul products is one mont_pow kernel, with the same rows."""
+    mont_mul products is one mont_pow kernel, with the same rows. While a
+    witness sink is installed it is the chain of mont_mul calls in the JAX
+    package's select form: the product with a is formed (and recorded) on
+    every bit, set or not, and kept on set bits."""
     if exponent == 0:
         return one_mont(a.shape[:-1], a.device)
-    if _use_kernels(a):
+    if _use_kernels(a) and _witness_sink is None:
         from .kernels import mont as _km
 
         return _km.mont_pow(a, exponent)
@@ -712,12 +729,92 @@ def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
         acc = mont_mul(acc, acc)
         if (exponent >> i) & 1:
             acc = mont_mul(acc, a)
+        elif _witness_sink is not None:
+            mont_mul(acc, a)
     return acc
+
+
+def get_naf(exponent: int) -> list[int]:
+    """Non-adjacent form of exponent >= 0, LSB first, digits in {-1, 0, 1}:
+    sum(d * 2^i) == exponent and no two adjacent digits are nonzero."""
+    assert exponent >= 0
+    naf = []
+    e = exponent
+    while e > 0:
+        if e & 1:
+            d = 2 - (e & 3)  # 1 if e % 4 == 1 else -1
+            e -= d
+        else:
+            d = 0
+        naf.append(d)
+        e >>= 1
+    return naf
+
+
+def pow_naf(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent over the exponent's NAF digits, MSB first: one Fermat
+    inverse for the -1 digits, then per digit a square and, on a nonzero
+    digit, the product with a or a^-1."""
+    if exponent == 0:
+        return one_mont(a.shape[:-1], a.device)
+    naf = get_naf(exponent)
+    a_inv = inv(a)
+    acc = a  # the leading digit is 1
+    for d in naf[-2::-1]:
+        acc = mont_mul(acc, acc)
+        if d:
+            acc = mont_mul(acc, a if d > 0 else a_inv)
+    return acc
+
+
+def pow_dynamic(a: torch.Tensor, e_bits: torch.Tensor) -> torch.Tensor:
+    """a^e for an exponent given as data: e_bits (..., NBITS) little-endian
+    0/1 int32, broadcastable against a's batch shape, so that elements may
+    have different exponents. Per bit the product is kept where the bit is
+    set, and the base squared."""
+    bits = torch.movedim(e_bits.to(torch.int32), -1, 0)  # (NBITS, ...)
+    batch = torch.broadcast_shapes(a.shape[:-1], bits.shape[1:])
+    acc = one_mont(batch, a.device)
+    base = a.expand(*batch, NLIMBS)
+    for bit in bits:
+        acc = select(bit, mont_mul(acc, base), acc)
+        base = mont_square(base)
+    return acc
+
+
+def bits_of(exponents, nbits: int = 381) -> np.ndarray:
+    """Ints -> (..., nbits) little-endian 0/1 int32 array, pow_dynamic's
+    exponent layout."""
+    arr = np.asarray(exponents, dtype=object)
+    out = np.zeros(arr.shape + (nbits,), dtype=np.int32)
+    for idx in np.ndindex(arr.shape):
+        e = int(arr[idx])
+        assert 0 <= e < (1 << nbits)
+        for j in range(nbits):
+            out[idx + (j,)] = (e >> j) & 1
+    return out
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
     """Fermat inverse a^(p-2); maps 0 -> 0."""
-    return pow_static(a, _P - 2)
+    out = pow_static(a, _P - 2)
+    _record("inv", a, out)
+    return out
+
+
+def sqrt(a: torch.Tensor) -> torch.Tensor:
+    """Candidate square root a^((p+1)/4) (p = 3 mod 4); a root iff out^2 == a."""
+    return pow_static(a, (_P + 1) // 4)
+
+
+def legendre(a: torch.Tensor) -> torch.Tensor:
+    """a^((p-1)/2) in Montgomery form: one_mont, neg(one_mont) or 0."""
+    return pow_static(a, (_P - 1) // 2)
+
+
+def is_square(a: torch.Tensor) -> torch.Tensor:
+    """True for squares and zero."""
+    return ~is_equal(legendre(a), neg(one_mont(a.shape[:-1], a.device)))
 
 
 def from_mont(a: torch.Tensor) -> torch.Tensor:
@@ -730,3 +827,34 @@ def from_mont(a: torch.Tensor) -> torch.Tensor:
 def to_mont(a_std: torch.Tensor) -> torch.Tensor:
     """Standard-form limbs -> Montgomery form (mont_mul by R^2)."""
     return mont_mul(a_std, const("R2", a_std.device).expand_as(a_std))
+
+
+def sgn0(a: torch.Tensor) -> torch.Tensor:
+    """The RFC 9380 sign bit of the standard-form value."""
+    return canonicalize(from_mont(a))[..., 0] & 1
+
+
+def sqrt_with_sgn(a: torch.Tensor, sgn: torch.Tensor) -> torch.Tensor:
+    """Of the roots +-s of a square a, the one whose sgn0 is sgn's low bit.
+    Records a sqrt row."""
+    s = sqrt(a)
+    want = sgn0(s) == (sgn & 1)
+    out = select(want.to(torch.int32), s, neg(s))
+    _record("sqrt", a, sgn, out)
+    return out
+
+
+def div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a / b = a * b^-1 (b == 0 gives 0: inv maps 0 to 0)."""
+    return mont_mul(a, inv(b))
+
+
+def connect(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The equality constraint: records a connect row, which
+    models/witness.check_trace verifies, and returns a == b per element at
+    any tower level (the component axes reduced)."""
+    _record("connect", a, b)
+    eq = canonicalize(a) == canonicalize(b)
+    while eq.dim() > 1:
+        eq = eq.all(-1)
+    return eq

@@ -95,6 +95,21 @@ def is_equal(a, b):
     return (fp.canonicalize(a) == fp.canonicalize(b)).all(-1).all(-1)
 
 
+def connect(a, b):
+    """The equality constraint (fp.connect): a connect row and a == b."""
+    return fp.connect(a, b)
+
+
+def div(a, b):
+    """a / b = a * b^-1 (b == 0 gives 0)."""
+    return mul(a, inv(b))
+
+
+def conditional_mul(a, x, flag):
+    """a * x where flag (...,) is set, else a."""
+    return select(flag, mul(a, x), a)
+
+
 def is_one(a):
     return is_equal(a, one((), a.device).expand_as(a))
 
@@ -162,7 +177,7 @@ def mul_by_014(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
-    """(c0 - c1 w)/(c0^2 - v c1^2)."""
+    """(c0 - c1 w)/(c0^2 - v c1^2). Records an fq12_inv row."""
     a0, a1 = c0(a), c1(a)
     sq0, sq1 = fp.form(fq6.square_products(a0), fq6.square_products(a1))
     t = fq6.reduce(fq6.sub_wide(sq0, fq6.mul_by_nonresidue_wide(sq1)))
@@ -170,7 +185,9 @@ def inv(a: torch.Tensor) -> torch.Tensor:
     w0, w1 = fp.form(fq6.mul_products(a0, tinv), fq6.mul_products(a1, tinv))
     out0 = fq6.reduce(w0)
     out1 = fq6.neg(fq6.reduce(w1))
-    return pack(out0, out1)
+    out = pack(out0, out1)
+    fp._record("fq12_inv", a, out)
+    return out
 
 
 def _fp4_square_combine(r: list):
@@ -233,3 +250,15 @@ def frobenius_pow(a: torch.Tensor, n: int) -> torch.Tensor:
     for _ in range(n):
         a = frobenius_map(a)
     return a
+
+
+def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """MSB-first square-and-multiply by a static exponent."""
+    if exponent == 0:
+        return one(device=a.device).expand(a.shape)
+    acc = a
+    for i in range(exponent.bit_length() - 2, -1, -1):
+        acc = square(acc)
+        if (exponent >> i) & 1:
+            acc = mul(acc, a)
+    return acc

@@ -262,16 +262,85 @@ def square(a: torch.Tensor) -> torch.Tensor:
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
-    """(a0 - a1 u)/(a0^2 + a1^2); 0 -> 0 via the Fermat-inverse inv0 property
-    ."""
+    """(a0 - a1 u)/(a0^2 + a1^2); 0 -> 0 via the Fermat-inverse inv0 property.
+    Records an fq2_inv row."""
     n0, n1 = fp.conv_many([fp.ConvPair(c0(a), c0(a)), fp.ConvPair(c1(a), c1(a))])
     norm = fp.mont_reduce(n0 + n1)
     ninv = fp.inv(norm)
     neg_a1, m, v = fp.neg_relaxed(c1(a))
-    return fp.mont_reduce_stack(fp.conv_many([fp.ConvPair(c0(a), ninv),
-                                              fp.ConvPair(neg_a1, ninv, m, a_val=v)]))
+    out = fp.mont_reduce_stack(fp.conv_many([fp.ConvPair(c0(a), ninv),
+                                             fp.ConvPair(neg_a1, ninv, m, a_val=v)]))
+    fp._record("fq2_inv", a, out)
+    return out
+
+
+def div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a / b = a * b^-1 (b == 0 gives 0)."""
+    return mul(a, inv(b))
+
+
+def connect(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The equality constraint (fp.connect): a connect row and a == b."""
+    return fp.connect(a, b)
 
 
 def mul_small(a: torch.Tensor, k: int) -> torch.Tensor:
     """a * k for a small non-negative integer k (double-and-add on canonical limbs)."""
     return fp.mul_small(a, k)
+
+
+def sgn0(a: torch.Tensor) -> torch.Tensor:
+    """The RFC 9380 sign of a0 + a1 u."""
+    s0 = fp.sgn0(c0(a))
+    z0 = fp.is_zero(c0(a))
+    s1 = fp.sgn0(c1(a))
+    return s0 | (z0.to(torch.int32) & s1)
+
+
+def legendre_norm(a: torch.Tensor) -> torch.Tensor:
+    """The Legendre symbol of the norm a0^2 + a1^2 (the Fq2 square test)."""
+    n0, n1 = fp.conv_many([fp.ConvPair(c0(a), c0(a)), fp.ConvPair(c1(a), c1(a))])
+    return fp.legendre(fp.mont_reduce(n0 + n1))
+
+
+def is_square(a: torch.Tensor) -> torch.Tensor:
+    leg = legendre_norm(a)
+    return ~fp.is_equal(leg, fp.neg(fp.one_mont(leg.shape[:-1], a.device)))
+
+
+def sqrt(a: torch.Tensor) -> torch.Tensor:
+    """Square root in Fq2 for p = 3 mod 4 (a root iff square(out) == a):
+    a1 = a^((p-3)/4), x0 = a1 a, alpha = a1 x0; x0 u if alpha == -1, else
+    x0 (1 + alpha)^((p-1)/2)."""
+    a1p = pow_static(a, (fp._P - 3) // 4)
+    x0 = mul(a1p, a)
+    alpha = mul(a1p, x0)
+    batch = alpha.shape[:-2]
+    minus_one = pack(fp.neg(fp.one_mont(batch, a.device)), fp.zeros(batch, a.device))
+    is_m1 = is_equal(alpha, minus_one)
+    u_times = pack(fp.neg(c1(x0)), c0(x0))  # x0 * u
+    b = pow_static(add(alpha, one(device=a.device).expand(alpha.shape)), (fp._P - 1) // 2)
+    other = mul(b, x0)
+    return select(is_m1.to(torch.int32), u_times, other)
+
+
+def sqrt_with_sgn(a: torch.Tensor, sgn: torch.Tensor) -> torch.Tensor:
+    """Of the roots +-s of a square a, the one whose sgn0 is sgn's low bit.
+    Records an fq2_sqrt row."""
+    s = sqrt(a)
+    want = sgn0(s) == (sgn & 1)
+    out = select(want.to(torch.int32), s, neg(s))
+    fp._record("fq2_sqrt", a, sgn, out)
+    return out
+
+
+def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """MSB-first square-and-multiply by a static exponent."""
+    if exponent == 0:
+        return one(device=a.device).expand(a.shape)
+    acc = a
+    for i in range(exponent.bit_length() - 2, -1, -1):
+        acc = square(acc)
+        if (exponent >> i) & 1:
+            acc = mul(acc, a)
+    return acc

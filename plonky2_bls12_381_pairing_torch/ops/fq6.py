@@ -95,6 +95,16 @@ def is_equal(a, b):
     return (fp.canonicalize(a) == fp.canonicalize(b)).all(-1).all(-1)
 
 
+def connect(a, b):
+    """The equality constraint (fp.connect): a connect row and a == b."""
+    return fp.connect(a, b)
+
+
+def conditional_mul(a, x, flag):
+    """a * x where flag (...,) is set, else a."""
+    return select(flag, mul(a, x), a)
+
+
 # ---------------------------------------------------------------------------
 # Wide products (interpolation formulas, lazily reduced)
 # ---------------------------------------------------------------------------
@@ -241,7 +251,8 @@ def inv(a: torch.Tensor) -> torch.Tensor:
     """Closed-form adjugate/norm inverse (reference fq6_target_tree.rs:59-89):
     t0 = a0^2 - xi a1 a2; t1 = xi a2^2 - a0 a1; t2 = a1^2 - a0 a2
     norm = a0 t0 + xi (a2 t1 + a1 t2);  out = (t0, t1, t2) * norm^-1.
-    Three groups of products: the t's, the norm's, the scalings."""
+    Three groups of products: the t's, the norm's, the scalings. Records an
+    fq6_inv row."""
     a0, a1, a2 = c(a, 0), c(a, 1), c(a, 2)
     sq0, m12, sq2, m01, sq1, m02 = fp.form(
         fq2.square_products(a0), fq2.mul_products(a1, a2), fq2.square_products(a2),
@@ -253,7 +264,9 @@ def inv(a: torch.Tensor) -> torch.Tensor:
                          fq2.mul_products(a1, t2))
     norm = fq2.reduce(fq2.add_wide(n0, fq2.mul_by_nonresidue_wide(fq2.add_wide(n2, n1))))
     ninv = fq2.inv(norm)
-    return pack(*fq2.mul_group(*(fq2.mul_products(t, ninv) for t in (t0, t1, t2))))
+    out = pack(*fq2.mul_group(*(fq2.mul_products(t, ninv) for t in (t0, t1, t2))))
+    fp._record("fq6_inv", a, out)
+    return out
 
 
 def frobenius_products(a: torch.Tensor) -> fp.Products:

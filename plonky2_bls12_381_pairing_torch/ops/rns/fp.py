@@ -164,6 +164,10 @@ def _const_np(tag) -> np.ndarray:
         "t1sum": RC.T1_SUM.astype(np.float32),
         "t2lo": RC.T2_LO.astype(np.float32), "t2hi": RC.T2_HI.astype(np.float32),
         "t2sum": RC.T2_SUM.astype(np.float32),
+        "crtlo": RC.CRT_LO.astype(np.float32), "crthi": RC.CRT_HI.astype(np.float32),
+        "crtsum": RC.CRT_SUM.astype(np.float32),
+        "c_crt_cinv": RC.C_CRT_CINV,
+        "ma_digits": RC.MA_DIGITS,
     }
     if kind in table:
         return table[kind]
@@ -463,13 +467,36 @@ def redc_cat(rs: list[R], dim: int = -2) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def zeros(batch_shape=(), device=None) -> torch.Tensor:
+    return torch.zeros((*batch_shape, LANES), dtype=torch.int32,
+                       device=resolve_device(device))
+
+
 def one(batch_shape=(), device=None) -> torch.Tensor:
     return const_on(("one",), resolve_device(device)).expand(*batch_shape, LANES)
 
 
+#: Witness-trace sink (models/witness.py): while it is a list, products and
+#: inverses of stored elements append (kind, (inputs..., output)) rows. The
+#: limb tier's ops/fp.py gets the same list, so the rows of both tiers land
+#: in one sink in the order they are computed.
+_witness_sink = None
+
+
+def _record(op: str, *tensors) -> None:
+    if _witness_sink is not None:
+        _witness_sink.append((op, tensors))
+
+
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product of stored elements (the Fp multiply)."""
-    return redc(mul_ss(a, b))
+    out = redc(mul_ss(a, b))
+    _record("rns_mul", a, b, out)
+    return out
+
+
+def square(a: torch.Tensor) -> torch.Tensor:
+    return mul(a, a)
 
 
 def neg_r(b: R, k: int | None = None) -> R:
@@ -527,7 +554,9 @@ def exponent_bits(exponent: int) -> list[int]:
 def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent: MSB-first square-and-multiply over the static bit table,
     each step redc(mul_ss(.)). Montgomery in/out. The plain version of the
-    pow_static_fused kernel (ops/rns/kernels.py)."""
+    pow_static_fused kernel (ops/rns/kernels.py). While a witness sink is
+    installed it takes the JAX package's select form: the product with a is
+    formed (and recorded) on every bit, set or not, and kept on set bits."""
     if exponent == 0:
         return one(a.shape[:-1], a.device)
     acc = a
@@ -535,15 +564,25 @@ def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
         acc = mul(acc, acc)
         if bit:
             acc = mul(acc, a)
+        elif _witness_sink is not None:
+            mul(acc, a)
     return acc
 
 
-def _fermat_inv(a: torch.Tensor) -> torch.Tensor:
-    """Per-element Fermat inverse a^(p-2) (0 -> 0 rides the pow), through
-    the pow kernel on the card."""
+def _pow_api(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent through the pow kernel on the card; while a witness sink is
+    installed, the recording loop of pow_static, whose rows the kernel would
+    not leave."""
+    if _witness_sink is not None:
+        return pow_static(a, exponent)
     from . import kernels
 
-    return kernels.pow_static_fused(a, P - 2)
+    return kernels.pow_static_fused(a, exponent)
+
+
+def _fermat_inv(a: torch.Tensor) -> torch.Tensor:
+    """Per-element Fermat inverse a^(p-2) (0 -> 0 rides the pow)."""
+    return _pow_api(a, P - 2)
 
 
 #: Row count at which the inverse product tree hands over to the Fermat pow.
@@ -578,5 +617,119 @@ def inv(a: torch.Tensor) -> torch.Tensor:
     for level in reversed(stack):
         h = level.shape[0] // 2
         invc = torch.cat([mul(invc, level[h:]), mul(invc, level[:h])], dim=0)
-    out = torch.where(zm, torch.zeros_like(invc[:n]), invc[:n])
-    return out.reshape(a.shape)
+    out = torch.where(zm, torch.zeros_like(invc[:n]), invc[:n]).reshape(a.shape)
+    _record("rns_inv", a, out)
+    return out
+
+
+def div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a / b = a * b^-1 (b == 0 gives 0: inv maps 0 to 0)."""
+    return mul(a, inv(b))
+
+
+# ---------------------------------------------------------------------------
+# RNS -> positional bridge and the non-arithmetic API
+# ---------------------------------------------------------------------------
+
+
+def to_limbs(a: torch.Tensor) -> torch.Tensor:
+    """Stored (..., LANES) -> canonical standard-form (..., PACK, 48) int32
+    radix-2^8 limbs (the limb tier's element layout, ops/fp.py).
+
+    One REDC leaves Montgomery form (value v < 3p, v = x mod p), one Barrett
+    gives the CRT coefficients c_i = v*(MA/a_i)^{-1} mod a_i, and one
+    extension product against the digit matrix (rns_constants.CRT) gives the
+    lazy positional digits of sum_i c_i*(MA/a_i) with their exact Kawamura
+    wrap count k; v's digits are cols - k*MA_digits, finished by the limb
+    tier's carry normalization and two conditional subtractions of p."""
+    from .. import fp as limb_fp
+
+    s = redc(wrap(a))
+    c = barrett(s * cst(("c_crt_cinv",), s))
+    d = _ext_matmul(c, *_planes("crt", s))
+    mad = cst(("ma_digits",), s)
+    per_slot = []
+    for k in range(RC.PACK):
+        lane = k * RC.SUB + RC.ALPHA_LANE
+        kw = (d[..., lane : lane + 1] + (1 << (RC.BETA_T - 1))) >> RC.BETA_T
+        per_slot.append(d[..., k * RC.SUB : k * RC.SUB + RC.CRT_DIGITS] - kw * mad)
+    cols = torch.stack(per_slot, dim=-2)  # (..., PACK, CRT_DIGITS)
+    hi = RC.NCH * (RC.PRIME_MAX - 1) * 255
+    w = limb_fp.Wide(cols, -RC.NCH * 255, hi, 0, 3 * P - 1)
+    v51 = limb_fp.normalize(w, RC.CRT_DIGITS)  # canonical digits, v < 3p
+    return limb_fp._cond_subtract_p(limb_fp._cond_subtract_p(v51))
+
+
+def neg(b: torch.Tensor) -> torch.Tensor:
+    """Stored negation 4p - b (canonical channels, value <= 4p)."""
+    return barrett(cst(("pmul", 4), b) - b)
+
+
+def sgn0(a: torch.Tensor) -> torch.Tensor:
+    """The RFC 9380 sign bit of each packed element's standard-form value:
+    (..., PACK)."""
+    return to_limbs(a)[..., 0] & 1
+
+
+def sqrt(a: torch.Tensor) -> torch.Tensor:
+    """Candidate square root a^((p+1)/4) (p = 3 mod 4); a root iff out^2 == a."""
+    return _pow_api(a, (P + 1) // 4)
+
+
+def legendre(a: torch.Tensor) -> torch.Tensor:
+    """a^((p-1)/2) in Montgomery form: one, neg(one) or 0."""
+    return _pow_api(a, (P - 1) // 2)
+
+
+def is_square(a: torch.Tensor) -> torch.Tensor:
+    """True for squares and zero, per packed element (..., PACK)."""
+    neg_one = neg(cst(("one",), a)).expand(a.shape)
+    return ~is_equal(legendre(a), neg_one)
+
+
+def sqrt_with_sgn(a: torch.Tensor, sgn: torch.Tensor) -> torch.Tensor:
+    """Of the roots +-s of a square a, the one whose sgn0 is sgn's low bit;
+    sgn: per packed element (..., PACK). Records an rns_sqrt row."""
+    s = sqrt(a)
+    want = sgn0(s) == (sgn & 1)
+    out = torch.where(slot_lanes(want), s, neg(s))
+    _record("rns_sqrt", a, sgn, out)
+    return out
+
+
+def connect(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The equality constraint: records an rns_connect row, which
+    models/witness.check_trace verifies, and returns a == b per packed
+    element (..., PACK). Tower levels' component axes fold into the rows."""
+    _record("rns_connect", a, b)
+    return is_equal(a, b)
+
+
+def pow_naf(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent over the signed NAF digits of the exponent: one inverse,
+    then per digit a square and both products (by a and by a^-1), of which
+    the digit keeps one or neither."""
+    from .. import fp as limb_fp
+
+    naf = limb_fp.get_naf(exponent)  # LSB first
+    if not naf:
+        return one(a.shape[:-1], a.device)
+    a_inv = inv(a)
+    acc = a  # the leading digit is +1
+    for d in naf[-2::-1]:
+        sq = mul(acc, acc)
+        pos = mul(sq, a)
+        neg_ = mul(sq, a_inv)
+        acc = pos if d > 0 else (neg_ if d < 0 else sq)
+    return acc
+
+
+def pow_dynamic(a: torch.Tensor, e_bits: torch.Tensor) -> torch.Tensor:
+    """a^e for an exponent given as data: e_bits, (nbits,) int32 MSB first.
+    Every step squares and multiplies and keeps the product where the bit is
+    set."""
+    acc = one(a.shape[:-1], a.device)
+    for bit in e_bits:
+        sq = mul(acc, acc)
+        acc = torch.where(bit != 0, mul(sq, a), sq)
+    return acc

@@ -181,6 +181,12 @@ def is_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return fp.is_equal(a, b).all(dim=-2)  # reduce the 12-comp axis
 
 
+def connect(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The equality constraint (fp.connect): an rns_connect row of the 12
+    components, and a == b per packed element (..., PACK)."""
+    return fp.connect(a, b).all(dim=-2)
+
+
 def _kernels():
     from . import kernels  # imported late: kernels imports this module
 
@@ -351,8 +357,10 @@ _KARA_IDX = [6, 7, 4, 5, 2, 3, 10, 11]
 
 
 def compress_cyclotomic(a: torch.Tensor) -> torch.Tensor:
-    """(..., 12, LANES) cyclotomic element -> (..., 8, LANES) compressed."""
-    return a[..., _KARA_IDX, :]
+    """(..., 12, LANES) cyclotomic element -> (..., 8, LANES) compressed: the
+    Fq2 pairs of _KARA_IDX as slices (an index list would be a tensor made
+    from host data on every call)."""
+    return torch.cat([a[..., i:i + 2, :] for i in _KARA_IDX[::2]], dim=-2)
 
 
 def _kpairs(c: torch.Tensor):

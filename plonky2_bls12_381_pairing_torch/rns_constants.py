@@ -240,6 +240,28 @@ for _j in range(NCH):
 assert _T2_BLK.max() < (1 << PRIME_BITS)
 T2 = _block_diag(_T2_BLK)
 
+#: RNS -> positional bridge (ops/rns/fp.py to_limbs): per slot, digit column
+#: j < CRT_DIGITS holds the j-th radix-256 digit of (MA/a_i), and column
+#: ALPHA_LANE the Kawamura weight floor(2^BETA_T/a_i), so one extension-style
+#: matmul gives the lazy positional digits of sum_i c_i*(MA/a_i) and its
+#: exact wrap count over MA (exact for values < MA/2, as beta is).
+#: 51 digits cover the intermediate before the wrap (< 31*MA < 2^408).
+CRT_DIGITS = 51
+_CRT_BLK = np.zeros((SUB, SUB), dtype=np.int32)
+for _i in range(NCH):
+    _a = A_PRIMES[_i]
+    _mai = MA // _a
+    for _j in range(CRT_DIGITS):
+        _CRT_BLK[A_LO + _i, _j] = (_mai >> (8 * _j)) & 0xFF
+    _CRT_BLK[A_LO + _i, ALPHA_LANE] = (1 << BETA_T) // _a
+assert _CRT_BLK.max() <= 255 and (31 * MA) < (1 << (8 * CRT_DIGITS))
+CRT = _block_diag(_CRT_BLK)
+#: CRT coefficient constant: (MA/a_i)^{-1} mod a_i on A lanes.
+C_CRT_CINV = _lane_row(lambda i, m: pow(MA // m, -1, m) if _IS_A_S[i] else 0)
+#: Radix-256 digits of MA (the k*MA wrap subtraction).
+MA_DIGITS = np.array([(MA >> (8 * _j)) & 0xFF for _j in range(CRT_DIGITS)],
+                     dtype=np.int32)
+
 _PLANE_MASK = (1 << PLANE_BITS) - 1
 
 
@@ -249,9 +271,11 @@ def plane_split(mat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 T1_LO, T1_HI = plane_split(T1)
 T2_LO, T2_HI = plane_split(T2)
+CRT_LO, CRT_HI = plane_split(CRT)
 # Karatsuba plane combine uses (lo + hi): entries <= 190.
 T1_SUM = T1_LO + T1_HI
 T2_SUM = T2_LO + T2_HI
+CRT_SUM = CRT_LO + CRT_HI
 # f32 accumulation bound: <= NCH terms of <= 190*190.
 assert NCH * 190 * 190 < (1 << 24)
 

@@ -23,6 +23,7 @@ CPU: a CPU tensor is refused, there is no eager fallback.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import fields, is_dataclass
 from typing import Any, NamedTuple
@@ -110,9 +111,11 @@ def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class Captured:
-    """A call of fn captured into a CUDA graph (made by capture())."""
+    """A call of fn captured into a CUDA graph (made by capture()).
+    during_capture: a context manager entered around the captured call only
+    (not the warm-up), as the witness trace's recording is."""
 
-    def __init__(self, fn, args: tuple, static_kwargs: dict):
+    def __init__(self, fn, args: tuple, static_kwargs: dict, during_capture=None):
         self.signature = Signature(args)
         leaves, _ = flatten(tuple(args))
         if not leaves:
@@ -136,7 +139,7 @@ class Captured:
                 fn(*static_args, **static_kwargs)
             torch.cuda.current_stream(self.device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph), during_capture or contextlib.nullcontext():
                 out = fn(*static_args, **static_kwargs)
             torch.cuda.synchronize(self.device)
         self._outputs, self._out_spec = flatten(out)

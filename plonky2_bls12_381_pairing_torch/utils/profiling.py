@@ -5,6 +5,9 @@ call's device time.
 
   rns_op_report       exact Fp-op counts of a computation (ops/rns/fp.py
                       count_fp_ops);
+  static_op_report    rows per kind of a computation's witness trace
+                      (models/witness.py), the reference's circuit-size
+                      probe;
   card_peak           the card's peak int32 and u8 tensor-core rates, from
                       its SM count and maximum SM clock;
   rns_roofline        achieved operations per second (op counts x the
@@ -20,8 +23,7 @@ call's device time.
 
 The JAX package's compiled_cost (XLA's cost model) has no counterpart: an
 eager PyTorch call has no compiler cost model, and device_profile measures
-what compiled_cost estimates. Its static_op_report needs the witness trace,
-which the port does not have yet.
+what compiled_cost estimates.
 """
 
 from __future__ import annotations
@@ -46,6 +48,16 @@ def rns_op_report(fn, *args) -> dict:
     from ..ops.rns import fp
 
     return fp.count_fp_ops(fn, *args)
+
+
+def static_op_report(fn, *args) -> dict:
+    """{kind: recorded elements} of fn's witness trace: per row the product
+    of its first tensor's batch axes (a packed RNS row counts once)."""
+    from ..models import witness
+
+    _, tr = witness.trace(fn, *args)
+    return {op: sum(max(1, int(np.prod(r[0].shape[:-1]))) for r in rows)
+            for op, rows in tr.rows.items()}
 
 
 # ---------------------------------------------------------------------------

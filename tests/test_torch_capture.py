@@ -23,6 +23,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from plonky2_bls12_381_pairing_torch.entry import entry
 from plonky2_bls12_381_pairing_torch.models import pairing as lmp
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
+from plonky2_bls12_381_pairing_torch.models import witness
 from plonky2_bls12_381_pairing_torch.ops import curve as lcurve
 from plonky2_bls12_381_pairing_torch.ops import fp as lfp
 from plonky2_bls12_381_pairing_torch.ops.rns import kernels, tower
@@ -130,7 +131,8 @@ def _limb(strategy, p, q):
 
 
 @pytest.mark.parametrize("path", ["pairing", "pairing_check", "limb_pairing_auto",
-                                  "limb_pairing_fused"])
+                                  "limb_pairing_fused", "pairing_karabina",
+                                  "traced_pairing"])
 def test_second_call_makes_no_host_tensor(path, monkeypatch):
     """After a first call has made the cached tables, a call of each path
     makes no tensor from host data (torch.from_numpy, torch.tensor, an index
@@ -142,7 +144,9 @@ def test_second_call_makes_no_host_tensor(path, monkeypatch):
     else:
         _, (p, q) = entry(device="cpu")
         run = {"pairing": lambda: mpr.pairing(p, q),
-               "pairing_check": lambda: mpr.pairing_check([p, p], [q, q])}[path]
+               "pairing_check": lambda: mpr.pairing_check([p, p], [q, q]),
+               "pairing_karabina": lambda: mpr.pairing(p, q, impl="karabina"),
+               "traced_pairing": lambda: witness.trace(mpr.pairing, p, q)}[path]
     run()
     calls = []
     from_numpy = torch.from_numpy

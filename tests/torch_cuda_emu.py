@@ -6,13 +6,14 @@ as ops/cuda_build.py's nvcc: C++20 would find a function template by its
 arguments where nvcc needs it declared) against a small stand-in for the
 CUDA runtime and the generated headers of both tiers (rns_tables.h,
 limb_tables.h): a launch runs its blocks one after
-another, each as one std::thread per CUDA thread (1-, 2- or 3-D blocks),
-with a barrier for __syncthreads (a counter whose waiters yield their core
-while they spin: a block has more threads than the host has cores), one
-per warp of 32 threads for __syncwarp, the shuffles (__shfl_sync,
-__shfl_up_sync, __shfl_down_sync, __shfl_xor_sync) and __reduce_and_sync
-(through a per-warp exchange buffer), __shared__ as static storage and
-`extern __shared__` as the launch's dynamic shared memory
+another, each block's CUDA threads as fibers on the calling host thread
+(1-, 2- or 3-D blocks; a fiber runs until it waits at a barrier, and the
+block's scheduler then resumes the next one whose barrier has opened, so no
+thread spins and the host's load cannot starve a block), with a barrier for
+__syncthreads, one per warp of 32 threads for __syncwarp, the shuffles
+(__shfl_sync, __shfl_up_sync, __shfl_down_sync, __shfl_xor_sync) and
+__reduce_and_sync (through a per-warp exchange buffer), __shared__ as static
+storage and `extern __shared__` as the launch's dynamic shared memory
 (cudaFuncSetAttribute is a no-op), atomicAdd on int as the host's atomic
 add, and `__grid_constant__` parameters passed by value. The build defines
 RNS_HOST_EMU, under which rns_redc_tc.cuh takes `extend` from this module
@@ -20,7 +21,10 @@ RNS_HOST_EMU, under which rns_redc_tc.cuh takes `extend` from this module
 planes, written out: their mma.sync fragment layout is the one part left to
 the card) and records every REDC a thread runs, its K input residues and
 its K outputs, for `redc_log`. What the emulator cannot show is left to
-the card: timing, the compiler's limits, and races that its barriers hide.
+the card: timing, the compiler's limits, and races: the threads of a block
+take turns only at barriers, so two threads never run at once and a missing
+barrier between a write and another thread's read can go unseen. A barrier
+that some threads never reach aborts the process with a message.
 
 `bind(monkeypatch, kernels, lib)` points ops/rns/kernels.py's launch
 helpers at the built library (pytest's monkeypatch undoes it), so that a
@@ -46,38 +50,108 @@ _RUNTIME = r"""
 #pragma once
 #include <algorithm>
 #include <atomic>
+#include <functional>
+#include <sys/mman.h>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
-#include <thread>
 #include <vector>
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
-inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 threadIdx, blockIdx;  // set by the scheduler on each switch
 inline dim3 blockDim, gridDim;
 struct alignas(16) int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 template <class T> inline T min(T a, T b) { return b < a ? b : a; }
 template <class T> inline T max(T a, T b) { return a < b ? b : a; }
-// a barrier of n threads (the block's __syncthreads, a warp's): a counter
-// whose waiters yield their core while they spin (a block has more threads
-// than the host has cores)
+// The CUDA threads of a block run as fibers on the calling host thread: a
+// fiber runs until it waits at a barrier (or ends), then hands the host
+// thread back to the block's scheduler, which resumes the next fiber whose
+// barrier has opened. No thread spins, so the host's load does not starve a
+// block, and the interleaving is the same on every run.
+struct EmuFiber {
+  void* sp = nullptr;              // saved stack pointer while switched out
+  unsigned char* stack = nullptr;
+  const unsigned* wait_phase = nullptr;  // the barrier phase it waits past
+  unsigned wait_value = 0;
+  bool done = false;
+  std::function<void()> body;
+};
+constexpr size_t kFiberStack = size_t(8) << 20;  // as a host thread's
+inline std::vector<EmuFiber> g_fibers;
+inline int g_current = -1;
+inline void* g_sched_sp = nullptr;
+#if defined(__x86_64__)
+// save the callee-saved registers on this stack, store the stack pointer in
+// *from, load `to`, restore its registers, return into it
+extern "C" void emu_switch(void** from, void* to);
+asm(R"(
+.text
+.globl emu_switch
+.hidden emu_switch
+.type emu_switch,@function
+emu_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+.size emu_switch, .-emu_switch
+)");
+#else
+#error "the CUDA emulator's fibers switch stacks on x86-64 only"
+#endif
+inline void emu_yield() {  // back to the scheduler
+  emu_switch(&g_fibers[g_current].sp, g_sched_sp);
+}
+extern "C" inline void emu_fiber_main() {
+  EmuFiber& f = g_fibers[g_current];
+  f.body();
+  f.done = true;
+  emu_yield();
+  __builtin_unreachable();
+}
+inline void emu_fiber_start(EmuFiber& f) {
+  // the first switch into the fiber pops six zero registers and returns
+  // into emu_fiber_main with the stack aligned as after a call
+  auto* top = reinterpret_cast<void**>(f.stack + kFiberStack);
+  top[-1] = nullptr;
+  top[-2] = reinterpret_cast<void*>(&emu_fiber_main);
+  for (int i = 3; i <= 8; ++i) top[-i] = nullptr;
+  f.sp = top - 8;
+}
+// a barrier of n threads (the block's __syncthreads, a warp's): the last to
+// arrive opens it and goes on; the others wait as fibers
 struct EmuBarrier {
   const int n;
-  std::atomic<int> count{0};
-  std::atomic<unsigned> phase{0};
+  int count = 0;
+  unsigned phase = 0;
   explicit EmuBarrier(int n_) : n(n_) {}
   void arrive_and_wait() {
-    const unsigned p = phase.load(std::memory_order_acquire);
-    if (count.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
-      count.store(0, std::memory_order_relaxed);
-      phase.store(p + 1, std::memory_order_release);
+    if (++count == n) {
+      count = 0;
+      ++phase;
       return;
     }
-    while (phase.load(std::memory_order_acquire) == p) std::this_thread::yield();
+    EmuFiber& f = g_fibers[g_current];
+    f.wait_phase = &phase;
+    f.wait_value = phase;
+    emu_yield();
   }
 };
 inline EmuBarrier* g_barrier = nullptr;
@@ -93,8 +167,8 @@ struct EmuWarp {
   long long slot[kWarp];
   explicit EmuWarp(int n_) : bar(n_), n(n_) {}
 };
-inline thread_local EmuWarp* t_warp = nullptr;
-inline thread_local int t_lane = 0;
+inline EmuWarp* t_warp = nullptr;
+inline int t_lane = 0;
 inline void __syncwarp(unsigned = 0xffffffffu) { t_warp->bar.arrive_and_wait(); }
 template <class T> T emu_shfl(T v, int src, bool keep) {
   long long bits = 0;
@@ -160,7 +234,7 @@ inline int __float2int_rn(float x) { return static_cast<int>(std::nearbyint(x));
 // per thread of the last launch (block * threads per block + thread): its
 // REDCs as K, K inputs, K outputs
 inline std::vector<std::vector<int>> g_logs;
-inline thread_local std::vector<int>* t_log = nullptr;
+inline std::vector<int>* t_log = nullptr;
 template <int K> void emu_record(const int (&x)[K], bool first) {
   if (first) t_log->push_back(K);
   t_log->insert(t_log->end(), x, x + K);
@@ -169,6 +243,19 @@ template <int K> void emu_record(const int (&x)[K], bool first) {
 extern "C" int emu_log_threads() { return static_cast<int>(g_logs.size()); }
 extern "C" int emu_log_len(int i) { return static_cast<int>(g_logs[i].size()); }
 extern "C" const int* emu_log_data(int i) { return g_logs[i].data(); }
+
+// the fibers' stacks, kept from launch to launch (pages are committed only
+// where a fiber's stack reaches)
+inline std::vector<unsigned char*> g_stacks;
+inline unsigned char* emu_stack(size_t i) {
+  while (g_stacks.size() <= i) {
+    void* p = mmap(nullptr, kFiberStack, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (p == MAP_FAILED) std::abort();
+    g_stacks.push_back(static_cast<unsigned char*>(p));
+  }
+  return g_stacks[i];
+}
 
 template <class Kernel, class... A> void emu_launch(dim3 grid, dim3 block, size_t smem,
                                                     Kernel kernel, A... args) {
@@ -185,18 +272,36 @@ template <class Kernel, class... A> void emu_launch(dim3 grid, dim3 block, size_
     for (int w = 0; w * kWarp < threads; ++w) {
       warps.push_back(std::make_unique<EmuWarp>(std::min(kWarp, threads - w * kWarp)));
     }
-    std::vector<std::thread> ts;
+    g_fibers.assign(threads, EmuFiber{});
     for (int t = 0; t < threads; ++t) {
-      ts.emplace_back([=, &warps] {
+      g_fibers[t].stack = emu_stack(t);
+      g_fibers[t].body = [=] { kernel(args...); };
+      emu_fiber_start(g_fibers[t]);
+    }
+    // round robin: resume every fiber whose barrier has opened, until all
+    // have ended; a round that resumes none is a barrier no thread can pass
+    for (int live = threads; live > 0;) {
+      bool ran = false;
+      for (int t = 0; t < threads; ++t) {
+        EmuFiber& f = g_fibers[t];
+        if (f.done || (f.wait_phase && *f.wait_phase == f.wait_value)) continue;
+        f.wait_phase = nullptr;
         threadIdx = dim3(t % block.x, t / block.x % block.y, t / (block.x * block.y));
         blockIdx = dim3(b % grid.x, b / grid.x % grid.y, b / (grid.x * grid.y));
         t_warp = warps[t / kWarp].get();
         t_lane = t % kWarp;
         t_log = &g_logs[static_cast<size_t>(b) * threads + t];
-        kernel(args...);
-      });
+        g_current = t;
+        emu_switch(&g_sched_sp, f.sp);
+        ran = true;
+        live -= f.done;
+      }
+      if (!ran) {
+        std::fprintf(stderr, "emulated block %d: its threads wait at barriers that "
+                             "none of the others reach\n", b);
+        std::abort();
+      }
     }
-    for (auto& th : ts) th.join();
   }
 }
 """
