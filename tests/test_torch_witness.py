@@ -227,6 +227,25 @@ def test_export_matches_jax_without_sign_slots(limb_traces, rns_traces, which):
                 assert np.array_equal(np.asarray(a), b), op
 
 
+@pytest.mark.parametrize("tier", ["limb", "rns"])
+def test_export_of_connect_rows_matches_jax(tier):
+    """The equality kinds export as the JAX package's: with the kinds above,
+    all fourteen."""
+    rng = np.random.default_rng(0xC1)
+    if tier == "limb":
+        x, y = jfp.encode(ints(rng, 2)), jfp.encode(ints(rng, 2))
+        tfn, jfn = tfp.connect, jfp.connect
+    else:
+        x, y = jrfp.encode(ints(rng, 4)), jrfp.encode(ints(rng, 4))
+        tfn, jfn = trfp.connect, jrfp.connect
+    _, ttr = twt.trace(tfn, t(x), t(y))
+    _, jtr = jwt.trace(jfn, x, y)
+    (kind,) = ttr.rows
+    jex, tex = jwt.export_rows_u32(jtr)[kind], twt.export_rows_u32(ttr)[kind]
+    for a, b in zip(jex[0], tex[0]):
+        assert b.dtype == np.uint32 and np.array_equal(np.asarray(a), b), kind
+
+
 def test_export_takes_rns_sign_slots(rns_traces):
     """The reference's fault a: the JAX package's export sends the RNS sign
     slots to its RNS decoder. The port passes them through and exports the
