@@ -19,6 +19,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the warp kernels also at 1, 3, 5 and 127 rows, the limb tower kernel,
      conv, mont_reduce, mont_mul and mont_pow on row views too, conv and
      mont_mul with stride-0 operands;
+     pow_static's recording build (a witness trace's chains) against its
+     plain version at 128 and 3 rows, and its time;
      pow_static's time per dependent step against its latency model, and
      mont_pow's for one row and for 2048, beside the 608 mont_mul launches
      of the chain it replaces; mont_pow also for a 600-bit exponent, two
@@ -70,7 +72,8 @@ Phases (any failure exits non-zero; nothing is caught):
        (a) the traced RNS `pairing`, eager and captured (trace(jit=True)):
          its output the untraced pairing(impl="karabina")'s rows and the
          default pairing's values, 2048/2048; rns_mul / rns_inv records as
-         the product trees and select-form Fermat chains give them, and at
+         the product trees and select-form Fermat chains give them (each
+         chain one launch of pow_static's recording build), and at
          one packed row the CPU trace's counts and rows; check_trace all
          zeros, eager and captured, the captured rows the eager rows; one
          corrupted row per kind rejected; export_rows_u32 of every kind;
@@ -93,7 +96,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import math
 import multiprocessing
 import os
 import re
@@ -129,7 +131,8 @@ from plonky2_bls12_381_pairing_torch.utils import checkpoint
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 from plonky2_bls12_381_pairing_torch.utils.capture import capture
 from plonky2_bls12_381_pairing_torch.utils.profiling import (REDC_ROW, TC_OPS_PER_EXT_MAC, Work,
-                                                             device_profile, lane_work)
+                                                             device_profile, lane_work,
+                                                             recorded_elements)
 
 KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "pairing_kat.json"
 TPU_KERNELS = "plonky2_bls12_381_pairing_tpu/ops/rns/pallas.py"
@@ -599,26 +602,31 @@ _HP_OPS = lmp._HP_PROG[:, 0].tolist()
 #: Frobenius map's two fq6 maps and its three gamma products (7 Fq2
 #: products); the inverse's groups (the norm's squares, fq6.inv's products,
 #: its norm, fq2.inv's two, the scalings, the two fq6 products)
+#: fq6.inv: its two groups of products, each with its reductions (3 + 1),
+#: fq2.inv's two (and its mont_pow), and the scalings' group (3)
+_FQ6_INV = (5, 9)
 LIMB_STEP_LAUNCHES = {
     "doubling_step": (3, 3), "addition_step": (5, 15), "scale_coeffs": (1, 2),
     "mul": (1, 1), "square": (1, 1), "mul_by_014": (1, 1), "cyclotomic_square": (1, 1),
-    "frobenius_map": (2, 7), "inv": (7, 12),
+    "frobenius_map": (2, 7), "fq6_inv": _FQ6_INV,
+    # fq12.inv: the norm's squares and their reduction, fq6.inv, the two fq6
+    # products and their two reductions
+    "inv": (_FQ6_INV[0] + 2, _FQ6_INV[1] + 3),
 }
+#: the steps of the limb final exponentiation: the inverse, two products and
+#: two Frobenius maps, then the hard part's program
+FINAL_EXP_STEPS = {"inv": 1, "mul": 2 + _HP_OPS.count(lmp._OP_MUL),
+                   "cyclotomic_square": _HP_OPS.count(lmp._OP_CYCSQ),
+                   "frobenius_map": 2 + _HP_OPS.count(lmp._OP_FROB)}
 
 
-def limb_launches(strategy: str, terms: int) -> dict:
-    """Exact launches of the limb tier's pairing / multi_pairing of `terms`
-    terms: prepare (63 doubling and 5 addition steps per term), the Miller
-    loop (a scaling per term, 68 ells per term, 62 squares), the final
-    exponentiation (inverse, two products and two Frobenius maps, then the
-    hard part's program)."""
-    steps = {"doubling_step": 63 * terms, "addition_step": 5 * terms,
-             "scale_coeffs": terms, "mul_by_014": 68 * terms, "square": 62, "inv": 1,
-             "mul": 2 + _HP_OPS.count(lmp._OP_MUL),
-             "cyclotomic_square": _HP_OPS.count(lmp._OP_CYCSQ),
-             "frobenius_map": 2 + _HP_OPS.count(lmp._OP_FROB)}
+def limb_step_launches(steps: dict, strategy: str = "auto") -> dict:
+    """Exact launches of the limb steps `steps` ({step: calls}): conv and
+    mont_reduce by LIMB_STEP_LAUNCHES, a mont_pow per inverse, and under
+    "fused" one limb tower kernel per Fq12 tower step."""
     tower = ("mul", "square", "mul_by_014", "cyclotomic_square")
-    out = {"conv": 0, "mont_reduce": 0, "mont_pow": steps["inv"]}
+    out = {"conv": 0, "mont_reduce": 0,
+           "mont_pow": steps.get("inv", 0) + steps.get("fq6_inv", 0)}
     for step, n in steps.items():
         if strategy == "fused" and step in tower:
             out[f"limb_fq12_{step}"] = n
@@ -628,6 +636,16 @@ def limb_launches(strategy: str, terms: int) -> dict:
     return out
 
 
+def limb_launches(strategy: str, terms: int) -> dict:
+    """Exact launches of the limb tier's pairing / multi_pairing of `terms`
+    terms: prepare (63 doubling and 5 addition steps per term), the Miller
+    loop (a scaling per term, 68 ells per term, 62 squares), the final
+    exponentiation (FINAL_EXP_STEPS)."""
+    return limb_step_launches(
+        {"doubling_step": 63 * terms, "addition_step": 5 * terms, "scale_coeffs": terms,
+         "mul_by_014": 68 * terms, "square": 62, **FINAL_EXP_STEPS}, strategy)
+
+
 EXPECTED_LAUNCHES.update({
     "limb_pairing_auto": limb_launches("auto", 1),
     "limb_pairing_fused": limb_launches("fused", 1),
@@ -635,34 +653,54 @@ EXPECTED_LAUNCHES.update({
 })
 
 # Phase 6. A trace runs the RNS exponentiations as "karabina" (kara_exp
-# stays a kernel) and each Fermat chain as its recording loop: the RNS
-# chains as plain products, the limb chain as one mont_mul launch per
-# product (two per bit of p - 2 after its leading one); every other kernel
-# as untraced.
+# stays a kernel) and each Fermat chain in its recording form: the RNS
+# chains as one launch each of pow_static's recording build, so the launches
+# are those of the untraced pairing(impl="karabina"); the limb chain as one
+# mont_mul launch per product (two per bit of p - 2 after its leading one);
+# every other kernel as untraced.
 FERMAT_PRODUCTS = 2 * ((rm.P - 2).bit_length() - 1)
-_TRACED_FINAL_EXP = {k: v for k, v in final_exp_launches("karabina").items()
-                     if k != "pow_static"}
+_TRACED_FINAL_EXP = final_exp_launches("karabina")
 _LIMB_TRACED = {**limb_launches("auto", 1), "mont_pow": 0, "mont_mul": FERMAT_PRODUCTS}
+
+
+def chain_products(exponent: int) -> int:
+    """Products of a static square-and-multiply chain: a squaring per bit
+    after the leading one and a product per set bit among them."""
+    return exponent.bit_length() - 1 + bin(exponent).count("1") - 1
+
+
+#: Fq2 products of the limb fq2.sqrt (ops/fq2.py): the two chains by
+#: (p - 3)/4 and (p - 1)/2, then x0, alpha and the last product; each is
+#: one conv and one mont_reduce launch; sgn0 adds a mont_mul per component
+FQ2_SQRT_PRODUCTS = chain_products((rm.P - 3) // 4) + chain_products((rm.P - 1) // 2) + 3
 EXPECTED_LAUNCHES.update({
     "witness_pairing": {**_TRACED_FINAL_EXP, "miller_fused": 1},
     # the warm-up call and the captured call (a replay launches nothing)
     "witness_pairing_captured": {k: 2 * v for k, v in _TRACED_FINAL_EXP.items()}
     | {"miller_fused": 2},
     "witness_limb_pairing": _LIMB_TRACED,
-    # the hints, untraced: the Fermat chains are kernels again
+    # the hints, untraced: the Fermat chains are kernels again. The RNS Fq2
+    # root's chains are Fq2 products of plain formulas (ops/rns/fq2.py, as
+    # in the JAX package, where no Pallas kernel takes them)
     "hint_rns_sqrt": {"pow_static": 1},
     "hint_rns_fq2_sqrt": {},
     "hint_rns_fq2_inv": {"pow_static": 1},
     "hint_limb_sqrt": {"mont_pow": 1, "mont_mul": 1},
-    "hint_limb_fq2_sqrt": {"conv": None, "mont_reduce": None, "mont_mul": 2},
-    "hint_limb_fq6_inv": {"conv": None, "mont_reduce": None, "mont_pow": 1},
-    "hint_limb_fq12_inv": {"conv": None, "mont_reduce": None, "mont_pow": 1},
+    "hint_limb_fq2_sqrt": {"conv": FQ2_SQRT_PRODUCTS, "mont_reduce": FQ2_SQRT_PRODUCTS,
+                           "mont_mul": 2},
+    "hint_limb_fq6_inv": limb_step_launches({"fq6_inv": 1}),
+    "hint_limb_fq12_inv": limb_step_launches({"inv": 1}),
     # checkpointed runs, 68 steps in chunks of 17: one miller_run per chunk
     "checkpoint_rns_kill": {"miller_run": 1},
     "checkpoint_rns_resume": {**_FINAL_EXP, "miller_run": 3},
     "checkpoint_rns": {**_FINAL_EXP, "miller_run": 4},
-    "checkpoint_limb_kill": {"conv": None, "mont_reduce": None},
-    "checkpoint_limb_resume": {"conv": None, "mont_reduce": None, "mont_pow": 1},
+    # the limb chunks: the coefficients' scaling (once per start), the ells
+    # and squares of the steps run, then the final exponentiation
+    "checkpoint_limb_kill": limb_step_launches(
+        {"scale_coeffs": 1, "mul_by_014": 17, "square": int(_DO_SQUARE[:17].sum())}),
+    "checkpoint_limb_resume": limb_step_launches(
+        {"scale_coeffs": 1, "mul_by_014": 51, "square": int(_DO_SQUARE[17:].sum()),
+         **FINAL_EXP_STEPS}),
 })
 
 
@@ -819,16 +857,10 @@ def traces_equal(a: witness.WitnessTrace, b: witness.WitnessTrace) -> bool:
                for x, y in zip(ra, rb))
 
 
-def recorded_rows(rows: list) -> int:
-    """Rows of a kind's records: packed RNS rows or limb elements of each
-    record's first slot."""
-    return sum(max(1, math.prod(r[0].shape[:-1])) for r in rows)
-
-
 def check_clean(name: str, tr: witness.WitnessTrace) -> float:
     """check_trace all zeros; its ms per 1,000 recorded rows on the host
     clock."""
-    n = sum(recorded_rows(rows) for rows in tr.rows.values())
+    n = sum(recorded_elements(tr).values())
     torch.cuda.synchronize()
     t = time.perf_counter()
     result = witness.check_trace(tr)
@@ -854,7 +886,7 @@ def corrupted_rejected(name: str, tr: witness.WitnessTrace) -> None:
 
 def export_all(name: str, tr: witness.WitnessTrace) -> float:
     """export_rows_u32 of every kind; ms per 1,000 recorded rows."""
-    n = sum(recorded_rows(rows) for rows in tr.rows.values())
+    n = sum(recorded_elements(tr).values())
     t = time.perf_counter()
     ex = witness.export_rows_u32(tr)
     ms = (time.perf_counter() - t) * 1e3
@@ -915,7 +947,7 @@ def witness_phase(card: str, drive, path_counts: dict, pts: dict) -> dict:
                                                      statistics.median(untraced))
     res["untraced_ms"] = statistics.median(default)
     res["records_per_call"] = tr.counts()
-    res["rows_per_call"] = {op: recorded_rows(rs) for op, rs in tr.rows.items()}
+    res["rows_per_call"] = recorded_elements(tr)
     print(f"[witness_pairing] B={BATCH}: traced {res['traced_ms']:.1f} ms per call, "
           f"untraced pairing(impl='karabina') {res['untraced_karabina_ms']:.1f} ms, "
           f"pairing {res['untraced_ms']:.1f} ms (median of 3); rows per call "
@@ -1254,6 +1286,21 @@ def main() -> int:
         pow_err = max(pow_err, check("pow_static", kernels.pow_static_fused(pow_in, 0xD201),
                                      fp.pow_static(pow_in, 0xD201),
                                      f"{tuple(pow_in.shape)} e=0xD201"))
+        # the recording build (a witness trace's chains, at the 128-row root
+        # of their inverses' product trees): the select form's steps and
+        # power
+        for n in (pow_in.shape[0], ODD_ROWS[1]):
+            rec_out, rec_steps = kernels.pow_static_steps(pow_in[:n], e)
+            plain_out, plain_steps = fp.pow_static_steps(pow_in[:n], e)
+            pow_err = max(pow_err, check("pow_static", rec_out, plain_out,
+                                         f"recording, rows {n} e=p-2"),
+                          check("pow_static", rec_steps, plain_steps,
+                                f"recording steps {tuple(rec_steps.shape)}"))
+            assert torch.equal(rec_out, fp.pow_static(pow_in[:n], e))
+        del rec_out, rec_steps, plain_out, plain_steps
+        rec_ms = time_kernel(lambda i: kernels.pow_static_steps(pow_in, e), 5, batch=20)
+        print(f"[pow_static] recording build: {rec_ms:.4f} ms at {tuple(pow_in.shape)}, "
+              f"e=p-2 (a product on every bit, {2 * (e.bit_length() - 1)} steps written)")
         # 20 launches between two events, enqueued while the stream waits:
         # one launch's event pair alone also times the host's enqueue
         pow_ms = time_kernel(lambda i: kernels.pow_static_fused(pow_in, e), 5, batch=20)

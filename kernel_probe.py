@@ -1130,7 +1130,10 @@ def main() -> int:
         want = fp.pow_static(a, e)
 
         def pow_run(lib, launch: str, out: torch.Tensor, rows: int) -> None:
-            err = getattr(lib, launch)(P(a.data_ptr()), P(out.data_ptr()), I(rows),
+            # pow_static_launch takes the recording build's steps after out
+            # (null: the plain chain)
+            rec = (P(None),) if launch == "pow_static_launch" else ()
+            err = getattr(lib, launch)(P(a.data_ptr()), P(out.data_ptr()), *rec, I(rows),
                                        P(bits.data_ptr()), I(bits.numel()), stream())
             assert err == 0, (launch, err)
 

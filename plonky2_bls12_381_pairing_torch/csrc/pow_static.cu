@@ -2,6 +2,12 @@
 // multiply over e's bits (after its leading 1), each step redc(acc * acc)
 // and, where the bit is set, redc(acc * a). 0 maps to 0.
 //
+// The recording build (a non-null `rec`) is the chain of a witness trace,
+// the select form of ops/rns/fp.py pow_static_steps: the product with a is
+// formed on every bit, kept where the bit is set, and each step writes its
+// square and its product to rec (plane 2i the square of bit i, 2i + 1 the
+// product), from which the trace's rns_mul rows are read.
+//
 // Replaces the TPU kernel pow_static_fused (plonky2_bls12_381_pairing_tpu/
 // ops/rns/pallas.py, _build_pow), which runs the whole bit loop inside one
 // kernel with the bits in scalar memory. Its plain PyTorch version is
@@ -127,11 +133,13 @@ struct WarpRedc {
   }
 };
 
-// a and out are (rows, 128) int32: element e is slot e % 2 of row e / 2.
-// Block (32, WARPS): warp threadIdx.y takes element blockIdx.x * WARPS +
-// threadIdx.y.
+// a and out are (rows, 128) int32: element e is slot e % 2 of row e / 2;
+// rec (RECORD only) is (2 * nbits, rows, 128). Block (32, WARPS): warp
+// threadIdx.y takes element blockIdx.x * WARPS + threadIdx.y.
+template <bool RECORD>
 __global__ void __launch_bounds__(WARP * WARPS)
-    pow_static_kernel(const int* __restrict__ a, int* __restrict__ out, int elements,
+    pow_static_kernel(const int* __restrict__ a, int* __restrict__ out,
+                      int* __restrict__ rec, int elements,
                       const int* __restrict__ bits, int nbits) {
   __shared__ __align__(16) int buf[WARPS][2][WARP];
   const int t = threadIdx.x, w = threadIdx.y;
@@ -153,6 +161,7 @@ __global__ void __launch_bounds__(WARP * WARPS)
   r.sig2 = buf[w][1];
 
   const size_t base = static_cast<size_t>(e / PACK) * LANES + (e % PACK) * SUB + t;
+  const size_t plane = static_cast<size_t>(elements / PACK) * LANES;
   const int b0 = a[base], b1 = a[base + WARP];
   int x0 = b0, x1 = b1;
   int bit = nbits > 0 ? bits[0] : 0;
@@ -161,10 +170,22 @@ __global__ void __launch_bounds__(WARP * WARPS)
     x0 = mul_m(x0, x0, r.c0);
     x1 = mul_m(x1, x1, r.c1);
     r.run(x0, x1);
-    if (bit) {
+    if (bit || RECORD) {
+      const int s0 = x0, s1 = x1;
       x0 = mul_m(x0, b0, r.c0);
       x1 = mul_m(x1, b1, r.c1);
       r.run(x0, x1);
+      if (RECORD) {
+        int* sq = rec + 2 * static_cast<size_t>(i) * plane + base;
+        sq[0] = s0;
+        sq[WARP] = s1;
+        sq[plane] = x0;
+        sq[plane + WARP] = x1;
+        if (!bit) {
+          x0 = s0;
+          x1 = s1;
+        }
+      }
     }
     bit = next;
   }
@@ -174,12 +195,19 @@ __global__ void __launch_bounds__(WARP * WARPS)
 
 }  // namespace
 
-extern "C" int pow_static_launch(const int* a, int* out, int rows, const int* bits,
-                                 int nbits, void* stream) {
+// rec: null for the plain chain, else the recording build's (2 * nbits,
+// rows, 128) steps
+extern "C" int pow_static_launch(const int* a, int* out, int* rec, int rows,
+                                 const int* bits, int nbits, void* stream) {
   const int elements = rows * PACK;
   if (elements > 0) {
-    pow_static_kernel<<<(elements + WARPS - 1) / WARPS, dim3(WARP, WARPS), 0,
-                        static_cast<cudaStream_t>(stream)>>>(a, out, elements, bits, nbits);
+    const dim3 grid((elements + WARPS - 1) / WARPS), block(WARP, WARPS);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (rec != nullptr) {
+      pow_static_kernel<true><<<grid, block, 0, s>>>(a, out, rec, elements, bits, nbits);
+    } else {
+      pow_static_kernel<false><<<grid, block, 0, s>>>(a, out, rec, elements, bits, nbits);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

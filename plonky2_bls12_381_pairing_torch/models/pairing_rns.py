@@ -183,6 +183,21 @@ def miller_loop_fused_plain(p: G1Affine, q: G2Affine) -> torch.Tensor:
 
 #: The forms of the exponentiation by |BLS_X|, each one the JAX package has.
 EXP_IMPLS = ("segments", "cond", "runs", "karabina", "karabina_runs", "karabina_full")
+#: The form every cyclotomic_exp takes while set, whatever impl its caller
+#: passes (set_exp_form); None: the caller's.
+_EXP_FORM = None
+
+
+def set_exp_form(impl: str | None) -> str | None:
+    """Make every cyclotomic_exp (and so final_exponentiation and pairing)
+    take the form `impl` whatever impl is passed, or the caller's again for
+    None; the previous setting. models/witness.py's trace sets "karabina"
+    for its duration."""
+    global _EXP_FORM
+    if impl is not None and impl not in EXP_IMPLS:
+        raise ValueError(f"impl must be one of {EXP_IMPLS} or None, got {impl!r}")
+    prev, _EXP_FORM = _EXP_FORM, impl
+    return prev
 
 
 def _karabina_exp(f: torch.Tensor, chain) -> torch.Tensor:
@@ -221,14 +236,14 @@ def cyclotomic_exp(f: torch.Tensor, impl: str = "segments") -> torch.Tensor:
                        segment;
       "karabina_full"  all of that in one kernel (kernels.kara_full).
     All give the same value; the first three the same rows, and "karabina"
-    and "karabina_runs" the same rows. While a witness trace records
-    (models/witness.py), every impl runs as "karabina": the JAX package's
-    trace takes its Karabina form, whose decompressions' inversions are
-    recorded rows."""
+    and "karabina_runs" the same rows. While set_exp_form has set a form,
+    that form runs whatever impl is passed: a witness trace
+    (models/witness.py) sets "karabina", the JAX package's traced form, whose
+    decompressions' inversions are recorded rows."""
     if impl not in EXP_IMPLS:
         raise ValueError(f"impl must be one of {EXP_IMPLS}, got {impl!r}")
-    if fp._witness_sink is not None:
-        impl = "karabina"
+    if _EXP_FORM is not None:
+        impl = _EXP_FORM
     if impl == "segments":
         out = kernels.cyc_exp(f, _GS_SEGMENTS)
     elif impl == "cond":

@@ -23,11 +23,13 @@ trace() installs one list as the sink of both tiers' fp modules, so the rows
 land in the order they are computed. While it runs, the recording ops are
 the ones that compute: a limb strategy "fused" becomes "auto" (the fused
 Fq12 kernels hold their inverses' products in-kernel), the Fermat chains
-(pow_static_fused on the RNS tier, mont_pow on the limb tier) run as their
-per-product loops in the select form, and the RNS exponentiations by |x|
-take the "karabina" form (models/pairing_rns.py), whose decompressions'
-inversions record as the JAX package's unfused path does. Every other kernel
-stays on: none of them computes a recorded row.
+take the JAX package's select form (a product with the base on every bit,
+recorded) -- on the RNS tier the pow kernel's recording build, which writes
+each step's square and product for the rows, on the limb tier one mont_mul
+per product in place of the one mont_pow -- and the RNS exponentiations by
+|x| take the "karabina" form (models/pairing_rns.py set_exp_form), whose
+decompressions' inversions record as the JAX package's unfused path does.
+Every other kernel stays on: none of them computes a recorded row.
 
 Rows export as the reference's 12 x u32 little-endian limbs per Fp element
 (to_u32_limbs, rns_to_u32_limbs, export_rows_u32); sign flags pass through.
@@ -95,10 +97,13 @@ def trace(fn, *args, jit: bool = False, strict: bool = True):
     For its duration the recording forms are forced (module docstring) and
     the caller's settings restored afterwards. strict=True raises if nothing
     was recorded: a clean check of an empty trace would prove nothing."""
+    from . import pairing_rns
+
     sink: list = []
     prev_strategy = fp.get_strategy()
     if prev_strategy == "fused":
         fp.set_strategy("auto")
+    prev_form = pairing_rns.set_exp_form("karabina")
     try:
         if jit:
             from ..utils.capture import Captured
@@ -113,6 +118,7 @@ def trace(fn, *args, jit: bool = False, strict: bool = True):
     finally:
         _install(None)
         fp.set_strategy(prev_strategy)
+        pairing_rns.set_exp_form(prev_form)
     tr = WitnessTrace()
     for op, tensors in sink:
         tr.add(op, tensors)

@@ -604,6 +604,11 @@ def mont_reduce_stack(wides: list[Wide], axis: int = -2) -> torch.Tensor:
 _witness_sink = None
 
 
+def recording() -> bool:
+    """Whether a witness trace is recording (a sink is installed)."""
+    return _witness_sink is not None
+
+
 def _record(op: str, *tensors) -> None:
     if _witness_sink is not None:
         _witness_sink.append((op, tensors))
@@ -720,7 +725,7 @@ def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
     every bit, set or not, and kept on set bits."""
     if exponent == 0:
         return one_mont(a.shape[:-1], a.device)
-    if _use_kernels(a) and _witness_sink is None:
+    if _use_kernels(a) and not recording():
         from .kernels import mont as _km
 
         return _km.mont_pow(a, exponent)
@@ -729,7 +734,7 @@ def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
         acc = mont_mul(acc, acc)
         if (exponent >> i) & 1:
             acc = mont_mul(acc, a)
-        elif _witness_sink is not None:
+        elif recording():
             mont_mul(acc, a)
     return acc
 

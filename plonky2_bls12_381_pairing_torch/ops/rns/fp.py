@@ -483,6 +483,11 @@ def one(batch_shape=(), device=None) -> torch.Tensor:
 _witness_sink = None
 
 
+def recording() -> bool:
+    """Whether a witness trace is recording (a sink is installed)."""
+    return _witness_sink is not None
+
+
 def _record(op: str, *tensors) -> None:
     if _witness_sink is not None:
         _witness_sink.append((op, tensors))
@@ -554,29 +559,58 @@ def exponent_bits(exponent: int) -> list[int]:
 def pow_static(a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent: MSB-first square-and-multiply over the static bit table,
     each step redc(mul_ss(.)). Montgomery in/out. The plain version of the
-    pow_static_fused kernel (ops/rns/kernels.py). While a witness sink is
-    installed it takes the JAX package's select form: the product with a is
-    formed (and recorded) on every bit, set or not, and kept on set bits."""
+    pow_static_fused kernel (ops/rns/kernels.py). While a witness trace
+    records, it takes the JAX package's select form (pow_static_steps) and
+    records its products."""
     if exponent == 0:
         return one(a.shape[:-1], a.device)
+    if recording():
+        return _record_chain(a, exponent, *pow_static_steps(a, exponent))
     acc = a
     for bit in exponent_bits(exponent):
-        acc = mul(acc, acc)
+        acc = redc(mul_ss(acc, acc))
         if bit:
-            acc = mul(acc, a)
-        elif _witness_sink is not None:
-            mul(acc, a)
+            acc = redc(mul_ss(acc, a))
     return acc
 
 
+def pow_static_steps(a: torch.Tensor, exponent: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """a^exponent (exponent >= 1) in the select form, and its steps: per bit
+    after the leading one the square and the product with a, which is
+    formed on every bit and kept where the bit is set; steps[2i] and
+    steps[2i + 1] (shape (2 * nbits, *a.shape)). The plain version of the
+    pow kernel's recording build (ops/rns/kernels.py pow_static_steps)."""
+    acc, steps = a, []
+    for bit in exponent_bits(exponent):
+        sq = redc(mul_ss(acc, acc))
+        pr = redc(mul_ss(sq, a))
+        steps += [sq, pr]
+        acc = pr if bit else sq
+    return acc, (torch.stack(steps) if steps else a.new_empty((0, *a.shape)))
+
+
+def _record_chain(a: torch.Tensor, exponent: int, out: torch.Tensor,
+                  steps: torch.Tensor) -> torch.Tensor:
+    """Record a select-form chain's products from its steps as the JAX
+    package's scan records them, two rns_mul rows per bit: (acc, acc,
+    square) and (square, a, product); out."""
+    acc = a
+    for i, bit in enumerate(exponent_bits(exponent)):
+        sq, pr = steps[2 * i], steps[2 * i + 1]
+        _record("rns_mul", acc, acc, sq)
+        _record("rns_mul", sq, a, pr)
+        acc = pr if bit else sq
+    return out
+
+
 def _pow_api(a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a^exponent through the pow kernel on the card; while a witness sink is
-    installed, the recording loop of pow_static, whose rows the kernel would
-    not leave."""
-    if _witness_sink is not None:
-        return pow_static(a, exponent)
+    """a^exponent through the pow kernel on the card (its plain version on
+    the CPU). While a witness trace records, the kernel's recording build,
+    whose steps give the chain's rows."""
     from . import kernels
 
+    if recording():
+        return _record_chain(a, exponent, *kernels.pow_static_steps(a, exponent))
     return kernels.pow_static_fused(a, exponent)
 
 

@@ -9,6 +9,8 @@ ops/rns/pallas.py on the pairing's paths) and their plain PyTorch versions.
   kara_exp(c, segments)           <- pallas.kara_exp_run     (csrc/kara_exp.cu)
   kara_full(a, segments)          <- pallas.kara_full_run    (csrc/kara_full.cu)
   pow_static_fused(a, exponent)   <- pallas.pow_static_fused (csrc/pow_static.cu)
+  pow_static_steps(a, exponent)   the same kernel's recording build, for the
+                                  witness trace's chains (csrc/pow_static.cu)
   miller_run(f0, coeffs, py, px, skip, flags)
                                   <- pallas.miller_run, for 1 <= T <= 64 terms
                                                              (csrc/miller.cu)
@@ -58,8 +60,9 @@ _PTR, _INT, _STRIDE = cuda_build.PTR, cuda_build.INT, cuda_build.STRIDE
 #: operand with a row stride is (_PTR, _STRIDE); every entry ends in the
 #: output pointer, the row count and the stream, but for the exponentiation
 #: and pow kernels, which take (a, out, rows, int array, its length, stream;
-#: kara_full a scratch buffer after out and two arrays), and the square
-#: runs, which take (a, out, rows, n, stream).
+#: kara_full a scratch buffer after out and two arrays, pow_static its steps
+#: buffer or null after out), and the square runs, which take (a, out, rows,
+#: n, stream).
 _KERNELS = {
     "cyc_exp": ("cyc_exp.cu", "cyc_exp_launch",
                 [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
@@ -74,7 +77,7 @@ _KERNELS = {
     "kara_full": ("kara_full.cu", "kara_full_launch",
                   [_PTR, _PTR, _PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR]),
     "pow_static": ("pow_static.cu", "pow_static_launch",
-                   [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
+                   [_PTR, _PTR, _PTR, _INT, _PTR, _INT, _PTR]),
     "miller_run": ("miller.cu", "miller_run_launch",
                    [_PTR, _STRIDE, _PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR]),
     "miller_fused": ("miller.cu", "miller_fused_launch",
@@ -458,12 +461,30 @@ def pow_static_fused(a: torch.Tensor, exponent: int) -> torch.Tensor:
     return _pow_static_kernel(a, exponent)
 
 
-def _pow_static_kernel(a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """pow_static_fused's launch, one warp per Fp element."""
+def pow_static_steps(a: torch.Tensor, exponent: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """a^exponent (exponent >= 1) in the select form of a witness trace's
+    chain, and its steps: (2 * nbits, *a.shape), the square and the product
+    with a of each bit after the leading one (fp.pow_static_steps)."""
+    if exponent < 1:
+        raise ValueError("exponent must be >= 1")
+    if a.device.type == "cpu":
+        return fp.pow_static_steps(a, exponent)
+    return _pow_static_kernel(a, exponent, record=True)
+
+
+def _pow_static_kernel(a: torch.Tensor, exponent: int, record: bool = False):
+    """pow_static_fused's launch, one warp per Fp element; with `record`, the
+    recording build's, which also returns the steps."""
     _check(a, (LANES,))
     bits = fp.exponent_bits(exponent)
     arg = _int_arg(("bits", exponent), bits or [0], a.device)
-    return _launch("pow_static", a, a.numel() // LANES, arg, len(bits))
+    out = torch.empty_like(a)
+    steps = (torch.empty((2 * len(bits), *a.shape), dtype=torch.int32, device=a.device)
+             if record else None)
+    _call("pow_static", a.device, a.data_ptr(), out.data_ptr(),
+          None if steps is None else steps.data_ptr(), a.numel() // LANES, arg.data_ptr(),
+          len(bits))
+    return (out, steps) if record else out
 
 
 def _row_operand(t: torch.Tensor, batch: tuple) -> torch.Tensor:

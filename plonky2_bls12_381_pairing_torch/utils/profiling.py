@@ -50,14 +50,18 @@ def rns_op_report(fn, *args) -> dict:
     return fp.count_fp_ops(fn, *args)
 
 
-def static_op_report(fn, *args) -> dict:
-    """{kind: recorded elements} of fn's witness trace: per row the product
-    of its first tensor's batch axes (a packed RNS row counts once)."""
-    from ..models import witness
-
-    _, tr = witness.trace(fn, *args)
+def recorded_elements(tr) -> dict:
+    """{kind: recorded elements} of a WitnessTrace: per row the product of
+    its first tensor's batch axes (a packed RNS row counts once)."""
     return {op: sum(max(1, int(np.prod(r[0].shape[:-1]))) for r in rows)
             for op, rows in tr.rows.items()}
+
+
+def static_op_report(fn, *args) -> dict:
+    """{kind: recorded elements} of fn's witness trace (recorded_elements)."""
+    from ..models import witness
+
+    return recorded_elements(witness.trace(fn, *args)[1])
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,7 @@ from plonky2_bls12_381_pairing_torch.ops.rns import kernels, tower
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 from plonky2_bls12_381_pairing_tpu.ops import fp as jfp
 from test_torch_exp_kernels import cyclotomic_rows
-from torch_cuda_emu import CSRC, bind, bind_limb, build, compiler
+from torch_cuda_emu import CSRC, ORDERS, bind, bind_limb, build, compiler, set_order
 
 torch.set_num_threads(1)
 
@@ -233,6 +233,33 @@ def test_kara_exp_on_the_tile_matches_plain(libs, monkeypatch, rows):
     assert torch.equal(out, kernels.kara_exp_plain(c, segments))
     assert torch.equal(out[0], out[1])
     kernels.reset_launches()
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_chain_kernels_under_each_fiber_order(libs, emu, monkeypatch, order):
+    """mont_mul, mont_pow, cyc_square_run and kara_exp with each block's
+    fibers resumed by thread index, in reverse and shuffled, so that a
+    missing barrier shows whichever thread reads first."""
+    for lib in libs.values():
+        set_order(lib, order)
+    try:
+        a, b = mul_operands(3)[0]
+        assert torch.equal(mont._mont_mul_kernel(a, b), mont.mont_mul_plain(a, b))
+        x = pow_rows(3)
+        assert torch.equal(mont._mont_pow_kernel(x, EXPONENTS[-1]),
+                           mont.mont_pow_plain(x, EXPONENTS[-1]))
+        bind(monkeypatch, kernels, libs["cyc_exp.cu"])
+        f = cyclotomic_rows(3, 0xEC)
+        assert torch.equal(kernels._square_run_kernel("cyc_square_run", f, 3, 12),
+                           kernels.cyc_square_run_plain(f, 3))
+        bind(monkeypatch, kernels, libs["kara_exp.cu"])
+        c = karabina_rows(3, 0xED)
+        assert torch.equal(kernels._kara_exp_kernel(c, (1, 0, 2)),
+                           kernels.kara_exp_plain(c, (1, 0, 2)))
+    finally:
+        for lib in libs.values():
+            set_order(lib, "forward")
+        kernels.reset_launches()
 
 
 def test_fp_inv_through_the_chain_kernel_matches_jax(emu, monkeypatch):

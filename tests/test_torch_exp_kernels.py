@@ -27,7 +27,7 @@ from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models.schedule import _GS_SEGMENTS, _KARA_SEGMENTS
 from plonky2_bls12_381_pairing_torch.ops.rns import kernel_tables, kernels, tower
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
-from torch_cuda_emu import CSRC, bind, build, compiler
+from torch_cuda_emu import CSRC, ORDERS, bind, build, compiler, set_order
 
 torch.set_num_threads(1)
 
@@ -96,6 +96,26 @@ def test_kara_full_kernel_matches_plain(emulated, rows, segments):
     assert bool(tower.is_one(got)[0, 1].all())
     if rows > 1:
         assert bool(tower.is_one(got)[1].all())
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_exp_kernels_under_each_fiber_order(libs, emulated, order):
+    """cyc_exp_cond and kara_full with each block's fibers resumed by
+    thread index, in reverse and shuffled."""
+    for lib in libs.values():
+        set_order(lib, order)
+    try:
+        a = cyclotomic_rows(1, 0xC8)
+        emulated("cyc_exp.cu")
+        assert torch.equal(kernels._cyc_exp_cond_kernel(a, _GS_SEGMENTS),
+                           kernels.cyc_exp_cond_plain(a, _GS_SEGMENTS))
+        emulated("kara_full.cu")
+        segments = (0, 1, 2, 0, 1, 3)
+        assert torch.equal(kernels._kara_full_kernel(a, segments),
+                           kernels.kara_full_plain(a, segments))
+    finally:
+        for lib in libs.values():
+            set_order(lib, "forward")
 
 
 def _code(source: str) -> str:

@@ -522,6 +522,21 @@ def test_pow_kernel_matches_plain(cuda, rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", (1, 5, 128))
+def test_pow_kernel_recording_build_matches_plain(cuda, rows):
+    """The recording build (a witness trace's chains) at p - 2: the select
+    form's steps and power, the 128-row root of the traced pairing's
+    inverses among the shapes."""
+    a = torch.from_numpy(fp_rows(2 * rows, 0xE7 + rows)).to(cuda)
+    kernels.reset_launches()
+    out, steps = kernels.pow_static_steps(a, rm.P - 2)
+    assert kernels.launches["pow_static"] == 1
+    want_out, want_steps = fp.pow_static_steps(a, rm.P - 2)
+    assert torch.equal(steps, want_steps) and torch.equal(out, want_out)
+    assert torch.equal(out, kernels.pow_static_fused(a, rm.P - 2))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("op", ["fq12_mul", "fq12_square", "fq12_cyclotomic_square",
                                 "fq12_mul_by_014", "fq12_mul_by_014_square"])
 def test_tower_kernel_matches_plain(cuda, op):

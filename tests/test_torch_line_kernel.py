@@ -27,7 +27,7 @@ from plonky2_bls12_381_pairing_torch.models.schedule import _DO_SQUARE, _FUSED_F
 from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernel_tables, kernels, lines, tower
 from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
-from torch_cuda_emu import bind, build, compiler, redc_log
+from torch_cuda_emu import ORDERS, bind, build, compiler, redc_log, set_order
 
 torch.set_num_threads(1)
 
@@ -176,6 +176,25 @@ def test_miller_run_kernel_matches_plain(emulated, two_terms, n_terms):
     got = kernels._miller_run_kernel(f0, list(call), tuple(map(int, _DO_SQUARE)))
     assert {k: n for k, n in emulated.items() if n} == {"miller_run": 1}
     assert torch.equal(got, kernels.miller_run_plain(f0, *call, _DO_SQUARE))
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_line_kernels_under_each_fiber_order(lib, emulated, two_terms, order):
+    """prepare_g2_lines and a one-term miller_run with each block's fibers
+    resumed by thread index, in reverse and shuffled."""
+    set_order(lib, order)
+    try:
+        p, q, args, want = two_terms[1]
+        assert torch.equal(kernels._prepare_g2_lines_kernel(*args[1:6],
+                                                            tuple(map(int, _IS_ADD))), want)
+        skip = ((p.infinity != 0) | (q.infinity != 0)).to(torch.int32)
+        call = ([want], [p.y], [p.x], [skip])
+        f0 = tower.one((1,), "cpu")
+        assert torch.equal(kernels._miller_run_kernel(f0, list(call),
+                                                      tuple(map(int, _DO_SQUARE))),
+                           kernels.miller_run_plain(f0, *call, _DO_SQUARE))
+    finally:
+        set_order(lib, "forward")
 
 
 def test_miller_run_plain_two_terms_matches_steps_raw(two_terms):

@@ -35,7 +35,7 @@ from plonky2_bls12_381_pairing_torch.models import pairing as lmp
 from plonky2_bls12_381_pairing_torch.ops import curve, fp, fq2, fq6, fq12, lines
 from plonky2_bls12_381_pairing_torch.ops.kernels import mont
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
-from torch_cuda_emu import CSRC, bind_limb, build, compiler
+from torch_cuda_emu import CSRC, ORDERS, bind_limb, build, compiler, set_order
 
 torch.set_num_threads(1)
 
@@ -210,6 +210,22 @@ def test_mont_reduce_kernel_matches_plain(emu, ncols, rows):
             assert got.shape == want.shape and torch.equal(got, want), name
             assert int(got.max()) <= C.SEMI_DIG and int(got.min()) >= 0
     assert emu["mont_reduce"] == 2 * len(bounds)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_mont_kernels_under_each_fiber_order(lib, emu, order):
+    """conv_many and mont_reduce with each block's fibers resumed by thread
+    index, in reverse and shuffled."""
+    set_order(lib, order)
+    try:
+        pairs = conv_pairs(30, 3)
+        assert_conv_matches(mont._conv_many_kernel(pairs), pairs)
+        (lo, hi), = list(path_bounds().values())[:1]
+        cols = reduce_columns(3, 95, lo, hi)[:, 0, :95].contiguous()
+        assert torch.equal(mont._mont_reduce_kernel(cols, lo, hi),
+                           mont.mont_reduce_plain(cols, lo, hi))
+    finally:
+        set_order(lib, "forward")
 
 
 # ---------------------------------------------------------------------------

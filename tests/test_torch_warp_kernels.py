@@ -10,6 +10,14 @@ comparison bit for bit (tolerance 0):
     against fq12_*_plain on one and on three rows, with the operands read in
     place from a wider stack (a row stride that is not the dense one) and
     the second operand broadcast (row stride 0);
+  * pow_static's recording build (the chains of a witness trace) against
+    fp.pow_static_steps, the select form, on one and three rows, its steps
+    and power; an RNS inverse traced through it has the rows of the plain
+    chain's trace (whose rows test_torch_witness.py holds to the JAX
+    package's), with one launch;
+  * both kernels, and the traced inverse, with each block's fibers resumed
+    in reverse and in a shuffled order as well (torch_cuda_emu.set_order),
+    so that a missing barrier shows whichever thread reads first;
   * no block-wide barrier in pow_static.cu or in the warp reduction.
 The plain versions are held to the JAX package in test_torch_fp.py and
 test_torch_limb_kernels.py."""
@@ -23,9 +31,10 @@ import torch
 
 from plonky2_bls12_381_pairing_torch import constants as C
 from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
+from plonky2_bls12_381_pairing_torch.models import witness
 from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernels
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
-from torch_cuda_emu import CSRC, bind, bind_limb, build, compiler
+from torch_cuda_emu import CSRC, ORDERS, bind, bind_limb, build, compiler, set_order
 
 torch.set_num_threads(1)
 
@@ -82,6 +91,42 @@ def test_pow_kernel_short_exponent_matches_plain(pow_kernel, rows):
     assert torch.equal(kernels._pow_static_kernel(a, 2), fp.pow_static(a, 2))
 
 
+@pytest.mark.parametrize("rows", [1, 3])
+def test_pow_kernel_recording_build_matches_select_form(pow_kernel, rows):
+    a = pow_rows(0x9C + rows)[:rows]
+    out, steps = kernels._pow_static_kernel(a, 0xD201, record=True)
+    want_out, want_steps = fp.pow_static_steps(a, 0xD201)
+    assert steps.shape == (2 * (0xD201).bit_length() - 2, rows, fp.LANES)
+    assert torch.equal(steps, want_steps) and torch.equal(out, want_out)
+    assert torch.equal(out, fp.pow_static(a, 0xD201))
+    assert pow_kernel["pow_static"] == 1
+
+
+@pytest.fixture(params=ORDERS)
+def order(request, libs):
+    for lib in libs.values():
+        set_order(lib, request.param)
+    yield request.param
+    for lib in libs.values():
+        set_order(lib, "forward")
+
+
+def test_traced_inverse_through_the_recording_build(pow_kernel, monkeypatch, order):
+    """fp.inv of three packed rows (zeros among them) under a trace, its
+    Fermat chain on the emulated recording build: the plain chain's rows."""
+    a = pow_rows(0x9D)
+    want_out, want = witness.trace(fp.inv, a)
+    monkeypatch.setattr(kernels, "pow_static_steps",
+                        lambda x, e: kernels._pow_static_kernel(x, e, record=True))
+    out, got = witness.trace(fp.inv, a)
+    assert pow_kernel["pow_static"] == 1 and torch.equal(out, want_out)
+    assert got.counts() == want.counts() == {"rns_mul": 2 * ((rm.P - 2).bit_length() - 1),
+                                             "rns_inv": 1}
+    for op, rows in want.rows.items():
+        for w, g in zip(rows, got.rows[op]):
+            assert all(torch.equal(x, y) for x, y in zip(w, g)), op
+
+
 def limb_rows(rng: np.random.Generator, *shape: int) -> torch.Tensor:
     """Weakly reduced rows, as the paths hand them over: digits to 258, the
     top one below p's."""
@@ -112,6 +157,14 @@ def test_tower_kernel_matches_plain(tower_kernel, name, rows):
         assert rows == 1 or one.stride(0) == 0
         assert torch.equal(launch(a, one), plain(a, one))
     assert tower_kernel[f"limb_fq12_{name}"] == (3 if n_second else 2)
+
+
+def test_warp_kernels_under_each_fiber_order(pow_kernel, tower_kernel, order):
+    a = pow_rows(0x9E)
+    assert torch.equal(kernels._pow_static_kernel(a, 0xD201), fp.pow_static(a, 0xD201))
+    rng = np.random.default_rng(0x7B)
+    x, y = limb_rows(rng, 3, 12), limb_rows(rng, 3, 12)
+    assert torch.equal(ltower._launch("limb_fq12_mul", x, y, 12), ltower.fq12_mul_plain(x, y))
 
 
 def _body(text: str, start: str) -> str:

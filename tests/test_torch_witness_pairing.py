@@ -26,10 +26,10 @@ from plonky2_bls12_381_pairing_torch.models import witness as twt
 from plonky2_bls12_381_pairing_torch.ops import curve as tcurve
 from plonky2_bls12_381_pairing_torch.ops import fq12 as tfq12
 from plonky2_bls12_381_pairing_torch.ops.rns import tower as ttw
-from plonky2_bls12_381_pairing_tpu.models import witness as jwt
 from plonky2_bls12_381_pairing_tpu.ops.rns import tower as jtw
 from plonky2_bls12_381_pairing_tpu.ops.rns.lines import G1Affine, G2Affine
 from plonky2_bls12_381_pairing_tpu.utils import refmodel as rm
+from torch_jax_witness import jax_trace
 
 torch.set_num_threads(1)
 
@@ -92,7 +92,7 @@ def test_traced_pairing_rows_match_jax_pieces(traced):
     jrows: dict = {}
     for name, x in pieces:
         fn = jtw.inv if name == "inv" else jtw.decompress_cyclotomic
-        _, jtr = jwt.trace(fn, x.numpy())
+        _, jtr = jax_trace(fn, x.numpy())
         for op, rows in jtr.rows.items():
             jrows.setdefault(op, []).extend(rows)
     assert {op: len(v) for op, v in jrows.items()} == tr.counts()
@@ -109,6 +109,7 @@ def test_trace_takes_the_karabina_form_for_any_impl(points, traced, impl):
     out, tr, _ = traced
     out2, tr2 = twt.trace(tmpr.pairing, p, q, impl)
     assert torch.equal(out2, out) and tr2.counts() == tr.counts()
+    assert tmpr._EXP_FORM is None  # the caller's form again after the trace
 
 
 def test_limb_traced_pairing_checks_clean():

@@ -9,7 +9,8 @@ limb_tables.h): a launch runs its blocks one after
 another, each block's CUDA threads as fibers on the calling host thread
 (1-, 2- or 3-D blocks; a fiber runs until it waits at a barrier, and the
 block's scheduler then resumes the next one whose barrier has opened, so no
-thread spins and the host's load cannot starve a block), with a barrier for
+thread spins and the host's load cannot starve a block; `set_order` makes
+the scheduler resume them in reverse or in a shuffled order), with a barrier for
 __syncthreads, one per warp of 32 threads for __syncwarp, the shuffles
 (__shfl_sync, __shfl_up_sync, __shfl_down_sync, __shfl_xor_sync) and
 __reduce_and_sync (through a per-warp exchange buffer), __shared__ as static
@@ -21,10 +22,12 @@ RNS_HOST_EMU, under which rns_redc_tc.cuh takes `extend` from this module
 planes, written out: their mma.sync fragment layout is the one part left to
 the card) and records every REDC a thread runs, its K input residues and
 its K outputs, for `redc_log`. What the emulator cannot show is left to
-the card: timing, the compiler's limits, and races: the threads of a block
-take turns only at barriers, so two threads never run at once and a missing
-barrier between a write and another thread's read can go unseen. A barrier
-that some threads never reach aborts the process with a message.
+the card: timing, the compiler's limits, and most races: the threads of a
+block take turns only at barriers, so two threads never run at once, and a
+missing barrier between a write and another thread's read shows only where
+the order of turns puts the read first (tests run such kernels under each
+order of `set_order`). A barrier that some threads never reach aborts the
+process with a message.
 
 `bind(monkeypatch, kernels, lib)` points ops/rns/kernels.py's launch
 helpers at the built library (pytest's monkeypatch undoes it), so that a
@@ -257,6 +260,28 @@ inline unsigned char* emu_stack(size_t i) {
   return g_stacks[i];
 }
 
+// the order in which a round resumes a block's fibers: 0 by thread index,
+// 1 the reverse, 2 a new shuffle every round (from a fixed seed, so a run
+// repeats); a missing barrier between one thread's write and another's read
+// shows under one order or another
+inline int g_order = 0;
+inline unsigned long long g_shuffle = 0x9E3779B97F4A7C15ull;
+extern "C" void emu_set_order(int order) {
+  g_order = order;
+  g_shuffle = 0x9E3779B97F4A7C15ull;
+}
+inline void emu_round_order(std::vector<int>& order) {
+  const int n = static_cast<int>(order.size());
+  for (int i = 0; i < n; ++i) order[i] = g_order == 1 ? n - 1 - i : i;
+  if (g_order != 2) return;
+  for (int i = n - 1; i > 0; --i) {  // Fisher-Yates on an xorshift64 stream
+    g_shuffle ^= g_shuffle << 13;
+    g_shuffle ^= g_shuffle >> 7;
+    g_shuffle ^= g_shuffle << 17;
+    std::swap(order[i], order[static_cast<int>(g_shuffle % static_cast<unsigned>(i + 1))]);
+  }
+}
+
 template <class Kernel, class... A> void emu_launch(dim3 grid, dim3 block, size_t smem,
                                                     Kernel kernel, A... args) {
   blockDim = block;
@@ -278,11 +303,14 @@ template <class Kernel, class... A> void emu_launch(dim3 grid, dim3 block, size_
       g_fibers[t].body = [=] { kernel(args...); };
       emu_fiber_start(g_fibers[t]);
     }
-    // round robin: resume every fiber whose barrier has opened, until all
-    // have ended; a round that resumes none is a barrier no thread can pass
+    // rounds: resume every fiber whose barrier has opened, in the order
+    // emu_set_order chose, until all have ended; a round that resumes none
+    // is a barrier no thread can pass
+    std::vector<int> order(threads);
     for (int live = threads; live > 0;) {
+      emu_round_order(order);
       bool ran = false;
-      for (int t = 0; t < threads; ++t) {
+      for (const int t : order) {
         EmuFiber& f = g_fibers[t];
         if (f.done || (f.wait_phase && *f.wait_phase == f.wait_value)) continue;
         f.wait_phase = nullptr;
@@ -385,6 +413,17 @@ def build(source: str, out_dir: Path) -> ctypes.CDLL:
     out.emu_log_data.argtypes = [ctypes.c_int]
     out.emu_log_data.restype = ctypes.POINTER(ctypes.c_int)
     return out
+
+
+#: the orders in which a block's fibers take their turns (emu_set_order)
+ORDERS = ("forward", "reverse", "shuffled")
+
+
+def set_order(lib: ctypes.CDLL, order: str) -> None:
+    """Make `lib`'s launches resume a block's fibers by thread index
+    ("forward", the default), in reverse, or in a new shuffle every round
+    (from a fixed seed, restarted here)."""
+    lib.emu_set_order(ORDERS.index(order))
 
 
 def redc_log(lib: ctypes.CDLL, threads_per_row: int = 128) -> list[tuple[np.ndarray,
