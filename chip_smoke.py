@@ -86,7 +86,25 @@ Phases (any failure exits non-zero; nothing is caught):
        (d) kill and resume on both tiers (every=17, fail_after_steps=17):
          the resumed rows the uninterrupted path's, 2048/2048, four
          miller_run launches per full RNS run; ms per chunk and the cost of
-         a save and a load.
+         a save and a load;
+  7. data-parallel sharding (parallel/mesh.py, parallel/multihost.py) and
+     the limb tier's num/den loop and canonical final exponentiation:
+       (a) rns_pairing_and_product_sharded at world size 1, an NCCL group of
+         this process (file:// rendezvous): e row for row the output of
+         `multi_pairing` with one term, gt the oracle's product of the 2048
+         pairings in value and rns_product_tree(e) row for row; one
+         all_gather per call;
+       (b) the same over two gloo ranks sharing the card (spawned processes
+         that load phase 1's build), 512 packed rows each: e equal in value
+         to (a)'s on all 2048 (identical rows counted: above fp.inv's 128-row
+         tree floor they are not the same by construction), gt equal in value
+         to (a)'s (rows compared and printed);
+       (c) the num/den `optimized_pairing` under "fused" and "auto", equal
+         in value to the limb `pairing` on 2048/2048, and the frozen
+         vectors (e_chain); `final_exponentiation_canonical` of the limb
+         Miller loop's output under "fused": its cube the limb `pairing` on
+         2048/2048, and the frozen vectors (e_canonical);
+       (d) entry.dryrun_multichip(1) on the card.
 The second-to-last lines are the card's name and power limit and a JSON
 object with each kernel's numbers; the last line is
 {"ok": true, "device": {...}}.
@@ -102,16 +120,21 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from plonky2_bls12_381_pairing_torch import constants as LC
+from plonky2_bls12_381_pairing_torch import entry
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models import pairing as lmp
+from plonky2_bls12_381_pairing_torch.models import pairing_numden as lnd
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
 from plonky2_bls12_381_pairing_torch.models import witness
 from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _GS_SEGMENTS,
@@ -127,6 +150,8 @@ from plonky2_bls12_381_pairing_torch.ops.kernels import tower as ltower
 from plonky2_bls12_381_pairing_torch.ops.rns import fp, kernel_tables, kernels, tower
 from plonky2_bls12_381_pairing_torch.ops.rns import fq2 as rfq2
 from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
+from plonky2_bls12_381_pairing_torch.parallel import mesh as pmesh
+from plonky2_bls12_381_pairing_torch.parallel import multihost
 from plonky2_bls12_381_pairing_torch.utils import checkpoint
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 from plonky2_bls12_381_pairing_torch.utils.capture import capture
@@ -609,6 +634,8 @@ LIMB_STEP_LAUNCHES = {
     "doubling_step": (3, 3), "addition_step": (5, 15), "scale_coeffs": (1, 2),
     "mul": (1, 1), "square": (1, 1), "mul_by_014": (1, 1), "cyclotomic_square": (1, 1),
     "frobenius_map": (2, 7), "fq6_inv": _FQ6_INV,
+    # the num/den loop's Fq6 denominator and vertical lines (PR 14)
+    "fq2_square": (1, 1), "fq6_mul": (1, 1), "fq6_square": (1, 1), "scale_verticals": (1, 1),
     # fq12.inv: the norm's squares and their reduction, fq6.inv, the two fq6
     # products and their two reductions
     "inv": (_FQ6_INV[0] + 2, _FQ6_INV[1] + 3),
@@ -646,7 +673,38 @@ def limb_launches(strategy: str, terms: int) -> dict:
          "mul_by_014": 68 * terms, "square": 62, **FINAL_EXP_STEPS}, strategy)
 
 
+
+
+#: Phase 7. The num/den pairing: the flagship's prepare with a vertical (an
+#: Fq2 square) per step, the Miller loop's 68 ells, an Fq6 product per line
+#: and an Fq6 square per iteration, the one Fq6 inverse and the product by
+#: it, then the chain final exponentiation
+NUMDEN_STEPS = dict(Counter(
+    {"doubling_step": 63, "addition_step": 5, "fq2_square": 68, "scale_coeffs": 1,
+     "scale_verticals": 1, "mul_by_014": 68, "fq6_mul": 68, "square": 62, "fq6_square": 62,
+     "fq6_inv": 1, "mul": 1}) + Counter(FINAL_EXP_STEPS))
+#: the canonical final exponentiation: the easy part (an inverse, two
+#: products, two Frobenius maps), then per base-p digit d_i of the hard part
+#: a square per bit after the leading one, a product per set bit after it,
+#: i Frobenius maps, and a product into the result after the first
+CANONICAL_STEPS = {
+    "inv": 1,
+    "mul": 2 + sum(bin(d).count("1") - 1 for d in lmp.C_HARD_DIGITS)
+    + len(lmp.C_HARD_DIGITS) - 1,
+    "cyclotomic_square": sum(d.bit_length() - 1 for d in lmp.C_HARD_DIGITS),
+    "frobenius_map": 2 + sum(range(len(lmp.C_HARD_DIGITS)))}
+
+
+def tree_muls(rows: int) -> int:
+    """Fq12 products of rns_product_tree over `rows` packed rows: one per
+    level of the fold (padded to a power of two), one across the slots."""
+    return (rows - 1).bit_length() + 1
+
+
 EXPECTED_LAUNCHES.update({
+    "numden_fused": limb_step_launches(NUMDEN_STEPS, "fused"),
+    "numden_auto": limb_step_launches(NUMDEN_STEPS, "auto"),
+    "canonical_fused": limb_step_launches(CANONICAL_STEPS, "fused"),
     "limb_pairing_auto": limb_launches("auto", 1),
     "limb_pairing_fused": limb_launches("fused", 1),
     "limb_pairing_check_2_fused": limb_launches("fused", 2),
@@ -837,11 +895,6 @@ def capture_phase(card: str, paths: dict) -> dict:
     return out
 
 
-def sgn0_fq2(z: rm.Fq2) -> int:
-    """The RFC 9380 sign of an Fq2 element."""
-    return (z.c0 & 1) | (int(z.c0 == 0) & (z.c1 & 1))
-
-
 def rows_of(p, n: int):
     """The first n rows of a point dataclass's tensors (n packed rows on the
     RNS tier)."""
@@ -991,7 +1044,7 @@ def witness_phase(card: str, drive, path_counts: dict, pts: dict) -> dict:
                           lambda r: all(v * v % rm.P == s and (v & 1 == g or v == 0)
                                         for v, s, g in zip(r, sq, sgn))),
         "hint_rns_fq2_sqrt": (lambda: rfq2.sqrt_with_sgn(enc2(sq2), sgn_packed), dec2,
-                              lambda r: all(v.square() == s and (sgn0_fq2(v) == g
+                              lambda r: all(v.square() == s and (rm.sgn0_fq2(v) == g
                                                                  or v == rm.Fq2(0, 0))
                                             for v, s, g in zip(r, sq2, sgn))),
         "hint_rns_fq2_inv": (lambda: rfq2.inv(enc2(z2)), dec2,
@@ -1123,6 +1176,165 @@ def witness_phase(card: str, drive, path_counts: dict, pts: dict) -> dict:
     for f in ckdir.glob("*.npz"):
         f.unlink()
     mark("checkpoint and resume")
+    return res
+
+
+def sharded_rank(rank: int, size: int, rendezvous: str, device: str, p, q) -> dict:
+    """One rank of phase 7's two gloo ranks on one card (spawned; found here
+    by its import path): this rank's packed rows of the global points (p, q,
+    on the CPU), the sharded RNS pairing and product once to load the
+    kernels, then counted and timed calls. Returns numpy rows."""
+    dev = multihost.initialize(rendezvous, size, rank, backend="gloo", device=device)
+    mesh = pmesh.make_mesh(device=dev)
+    sp, sq = pmesh.shard_points_rns(p, q, mesh)
+    fn = pmesh.rns_pairing_and_product_sharded(mesh)
+    fn(sp, sq)
+    torch.cuda.synchronize()
+    cuda_build.reset_all_launches()
+    pmesh.reset_collectives()
+    e, gt = fn(sp, sq)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_build.all_launches().items() if v}
+    gathers = pmesh.collectives["all_gather"]
+    times = host_times(lambda: fn(sp, sq), 3)
+    return {"e": e.cpu().numpy(), "gt": gt.cpu().numpy(), "launches": launches,
+            "all_gather": gathers, "ms": times, "backend": dist.get_backend(),
+            "device": str(dev), "jax": "jax" in sys.modules}
+
+
+def sharding_phase(card: str, drive, path_counts: dict, pts: dict) -> dict:
+    """Phase 7 (module docstring): the sharded RNS pairing and product at
+    world sizes 1 (NCCL, in this process) and 2 (gloo ranks sharing the
+    card), the limb tier's num/den pairing and canonical final
+    exponentiation, and the entry's dry run. pts: the run's points (on the
+    card and on the CPU), the frozen vectors' points and values, the rows of
+    phase 3 they are held to, and the oracle's rows."""
+    dev = pts["p"].x.device
+    rows = pts["p"].x.shape[0]
+    res: dict = {"card": card}
+    EXPECTED_LAUNCHES["sharded_rns_1"] = {
+        **_FINAL_EXP, "prepare_g2_lines": 1, "miller_run": 1,
+        "fq12_mul": _FINAL_EXP["fq12_mul"] + tree_muls(rows)}
+    oracle_gt = rm.Fq12.one()
+    for c in pts["want_rows"]:
+        oracle_gt = oracle_gt * rm.Fq12.from_coeffs(c)
+
+    # (a) world size 1: an NCCL group of this process alone
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            mesh = pmesh.make_mesh()
+            sp, sq = pmesh.shard_points_rns(pts["p"], pts["q"], mesh)
+            fn = pmesh.rns_pairing_and_product_sharded(mesh)
+            pmesh.reset_collectives()
+            (e1, gt1), path_counts["sharded_rns_1"] = drive("sharded_rns_1",
+                                                             lambda: fn(sp, sq))
+            gathers = pmesh.collectives["all_gather"]
+            ms1 = host_times(lambda: fn(sp, sq), 3)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    same_e = torch.equal(e1, pts["multi_pairing"])
+    gt_vals = list(tower.decode(gt1[None]))
+    same_gt = torch.equal(gt1, pmesh.rns_product_tree(e1))
+    print(f"[sharded_rns_1] {backend}, world size 1 on {mesh.device}: e rows identical to "
+          f"multi_pairing_1's: {same_e}; gt the oracle's product in both slots: "
+          f"{gt_vals == [oracle_gt] * 2}, rows of rns_product_tree(e): {same_gt}; "
+          f"{gathers} all_gather per call; {statistics.median(ms1):.1f} ms per call "
+          f"(min {min(ms1):.1f}, max {max(ms1):.1f} of 3)")
+    assert same_e and gt_vals == [oracle_gt] * 2 and same_gt and gathers == 1
+    res["world_size_1"] = {"backend": backend, "ms": ms1, "all_gather": gathers,
+                           "launches": {k: v for k, v in path_counts["sharded_rns_1"].items()
+                                        if v}}
+    mark("sharded pairing, world size 1")
+
+    # (b) two gloo ranks sharing the card (NCCL refuses two ranks on one
+    # card), each loading the kernels phase 1 built
+    libs = {f: f.stat().st_mtime_ns for f in kernels.build().glob("*.so")}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        ranks = multihost.spawn_ranks(sharded_rank, 2, f"file://{tmp}/rendezvous",
+                                      f"cuda:{dev.index or 0}", pts["p_cpu"], pts["q_cpu"],
+                                      timeout=300)
+        spawn_s = time.perf_counter() - t
+    rebuilt = {f: f.stat().st_mtime_ns for f in libs} != libs
+    e2 = torch.from_numpy(np.concatenate([r["e"] for r in ranks])).to(dev)
+    n_val = int(tower.is_equal(e2, e1).reshape(-1)[:BATCH].sum().item())
+    n_rows = elements_equal(e2, e1)
+    gt2 = [torch.from_numpy(r["gt"]).to(dev) for r in ranks]
+    gt_val = all(bool(tower.is_equal(g, gt1).all()) for g in gt2)
+    gt_rows = [torch.equal(g, gt1) for g in gt2]
+    want_launches = {k: v for k, v in EXPECTED_LAUNCHES["sharded_rns_1"].items() if v}
+    for r in ranks:
+        print(f"[sharded_rns_2] rank on {r['device']} ({r['backend']}): launches "
+              f"{r['launches']}, {r['all_gather']} all_gather per call, ms per call "
+              f"{statistics.median(r['ms']):.1f} (min {min(r['ms']):.1f}, max "
+              f"{max(r['ms']):.1f} of 3); jax imported: {r['jax']}")
+        assert r["backend"] == "gloo" and r["all_gather"] == 1 and not r["jax"]
+        assert r["launches"] == want_launches, (r["launches"], want_launches)
+    print(f"[sharded_rns_2] two gloo ranks on one card, {rows // 2} packed rows each "
+          f"({spawn_s:.1f} s with the ranks' start): e equal in value to world size 1's "
+          f"on {n_val}/{BATCH}, rows identical on {n_rows}/{BATCH}; gt equal in value on "
+          f"both ranks: {gt_val}, rows identical: {gt_rows}; kernels rebuilt: {rebuilt}")
+    assert n_val == BATCH and gt_val and not rebuilt
+    res["world_size_2"] = {"backend": "gloo", "spawn_s": spawn_s, "e_values": n_val,
+                           "e_rows_identical": n_rows, "gt_rows_identical": gt_rows,
+                           "ranks": [{k: r[k] for k in ("ms", "launches", "all_gather")}
+                                     for r in ranks]}
+    del e2, gt2, ranks
+    mark("sharded pairing, two gloo ranks on one card")
+
+    # (c) the limb tier: the num/den pairing under both strategies, the
+    # canonical final exponentiation, each against phase 3's limb pairing
+    # and the frozen vectors
+    def strategy(name, fn):
+        def run():
+            lfp.set_strategy(name)
+            try:
+                return fn()
+            finally:
+                lfp.set_strategy("auto")
+        return run
+
+    lp, lq, lkp, lkq = pts["lp"], pts["lq"], pts["lkp"], pts["lkq"]
+    ref, nkat = pts["limb_pairing"], len(pts["kat_chain"])
+    for name in ("fused", "auto"):
+        run = strategy(name, lambda: lnd.optimized_pairing(lp, lq))
+        out, path_counts[f"numden_{name}"] = drive(f"numden_{name}", run)
+        n_eq = int(lfq12.is_equal(out, ref).sum().item())
+        kout = strategy(name, lambda: lnd.optimized_pairing(lkp, lkq))()
+        n_kat = sum(g == w for g, w in zip(lfq12.decode(kout), pts["kat_chain"]))
+        ms = host_times(run, 1)[0]
+        print(f"[numden_{name}] equal in value to the limb pairing on {n_eq}/{BATCH}, "
+              f"KAT e_chain {n_kat}/{nkat}; {ms:.1f} ms per call")
+        assert n_eq == BATCH and n_kat == nkat
+        res[f"numden_{name}"] = {"ms": ms, "launches": {
+            k: v for k, v in path_counts[f"numden_{name}"].items() if v}}
+    f = strategy("fused", lambda: lmp.miller_loop(lp, lmp.prepare_g2(lq), lq.infinity))()
+    run = strategy("fused", lambda: lmp.final_exponentiation_canonical(f))
+    c, path_counts["canonical_fused"] = drive("canonical_fused", run)
+    cube = strategy("fused", lambda: lfq12.mul(lfq12.square(c), c))()
+    n_eq = int(lfq12.is_equal(cube, ref).sum().item())
+    kf = strategy("fused", lambda: lmp.miller_loop(lkp, lmp.prepare_g2(lkq), lkq.infinity))()
+    kc = strategy("fused", lambda: lmp.final_exponentiation_canonical(kf))()
+    n_kat = sum(g == w for g, w in zip(lfq12.decode(kc), pts["kat_canonical"]))
+    ms = host_times(run, 1)[0]
+    print(f"[canonical_fused] its cube equal in value to the limb pairing on "
+          f"{n_eq}/{BATCH}, KAT e_canonical {n_kat}/{nkat}; {ms:.1f} ms per call")
+    assert n_eq == BATCH and n_kat == nkat
+    res["canonical_fused"] = {"ms": ms, "launches": {
+        k: v for k, v in path_counts["canonical_fused"].items() if v}}
+    del f, c, cube, kf, kc
+    mark("the limb num/den pairing and canonical final exponentiation")
+
+    # (d) the entry's dry run on this card: one rank, a process of its own
+    t = time.perf_counter()
+    entry.dryrun_multichip(1)
+    res["dryrun_multichip_1_s"] = time.perf_counter() - t
+    print(f"[dryrun_multichip] 1 rank on the card: passed in "
+          f"{res['dryrun_multichip_1_s']:.1f} s with the rank's start")
+    mark("dryrun_multichip(1)")
     return res
 
 
@@ -1821,6 +2033,7 @@ def main() -> int:
         print(f"[limb_pairing] auto and fused equal in value on {n_eq}/{BATCH}, rows "
               f"identical: {torch.equal(*limb_out.values())}")
         assert n_eq == BATCH
+        limb_ref = limb_out["limb_pairing_fused"]
         del limb_out
 
         ln_dev = lp_dev.neg()
@@ -1937,6 +2150,17 @@ def main() -> int:
             "p": p_dev, "q": q_dev, "lp": lp_dev, "lq": lq_dev, "pairing": out,
             "karabina": outk, "want_rows": want_rows})
         print(json.dumps({"witness": wres}))
+
+        # -- 7. data-parallel sharding, the num/den loop, the canonical
+        # final exponentiation ---------------------------------------------
+        sres = sharding_phase(card, drive, path_counts, {
+            "p": p_dev, "q": q_dev, "p_cpu": G1Affine.encode(ps, device="cpu"),
+            "q_cpu": G2Affine.encode(qs, device="cpu"), "multi_pairing": out1,
+            "want_rows": want_rows, "lp": lp_dev, "lq": lq_dev, "lkp": lkp, "lkq": lkq,
+            "limb_pairing": limb_ref, "kat_chain": kwant,
+            "kat_canonical": [rm.Fq12.from_coeffs([int(h, 16) for h in v["e_canonical"]])
+                              for v in kat]})
+        print(json.dumps({"sharding": sres}))
 
     all_kernels = cuda_build.all_launches()
     for name in all_kernels:

@@ -1,6 +1,7 @@
 """The batched BLS12-381 optimal-ate pairing on the limb tier, the counterpart
 of the JAX package's models/pairing.py: G2 line precomputation (68 triples),
-the fused multi-Miller loop, and the cyclotomic final exponentiation.
+the fused multi-Miller loop, and the cyclotomic final exponentiation (the
+zkcrypto chain, and the canonical exponent by its base-p digits).
 
 Everything batches over leading instance axes; the Miller accumulator is a
 (B, 12, NLIMBS) limb tensor. The JAX package's scans, conds and switches over
@@ -23,6 +24,7 @@ import torch
 from .. import constants as C
 from ..ops import fp, fq2, fq12, lines
 from ..ops.curve import G1Affine, G2Affine, G2Projective
+from ..utils import refmodel as rm
 from .schedule import _DO_SQUARE, _IS_ADD
 
 NUM_COEFFS = C.NUM_LINE_COEFFS  # 68
@@ -245,6 +247,41 @@ def final_exponentiation(f: torch.Tensor) -> torch.Tensor:
     t2 = fq12.frobenius_pow(t2, 2)
     t2 = fq12.mul(t2, t1)  # easy part done; t2 is cyclotomic
     return _run_fq12_program(_HP_PROG, t2, out_reg=3)
+
+
+def _cyc_pow(m: torch.Tensor, exponent: int) -> torch.Tensor:
+    """m^exponent for cyclotomic m, MSB-first: a cyclotomic square on every
+    bit after the leading one and a product by m where the bit is set. The
+    JAX package's scan with a cond over the bits; the exponent is static, so
+    its bits stay Python ints and no tensor is made from host data."""
+    if exponent == 0:
+        return fq12.one((), m.device).expand(m.shape)
+    acc = m
+    for i in range(exponent.bit_length() - 2, -1, -1):
+        acc = fq12.cyclotomic_square(acc)
+        if (exponent >> i) & 1:
+            acc = fq12.mul(acc, m)
+    return acc
+
+
+#: base-p digits of the canonical hard-part exponent (p^4 - p^2 + 1)/r
+C_HARD_DIGITS = rm.HARD_PART_DIGITS
+
+
+def final_exponentiation_canonical(f: torch.Tensor) -> torch.Tensor:
+    """f^((p^12-1)/r) with the exact canonical exponent: the easy part, then
+    the hard part by its base-p digits, m^h = prod_i frob^i(m^(d_i))
+    (utils/refmodel.py final_exponentiation_canonical)."""
+    t0 = fq12.conjugate(f)
+    t1 = fq12.inv(f)
+    t2 = fq12.mul(t0, t1)
+    m = fq12.mul(fq12.frobenius_pow(t2, 2), t2)
+
+    out = None
+    for i, d in enumerate(C_HARD_DIGITS):
+        term = fq12.frobenius_pow(_cyc_pow(m, d), i)
+        out = term if out is None else fq12.mul(out, term)
+    return out
 
 
 # ---------------------------------------------------------------------------

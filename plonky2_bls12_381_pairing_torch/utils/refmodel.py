@@ -2,11 +2,12 @@
 
 The port's own copy of the JAX package's oracle (utils/refmodel.py there),
 trimmed to what the PyTorch package needs: the Fp/Fq2/Fq6/Fq12 tower, G1/G2
-points, the line-evaluation Miller loop and the zkcrypto-chain final
+points, the line-evaluation Miller loop, the zkcrypto-chain final
 exponentiation (the "cube" convention of tests/vectors/pairing_kat.json
-``e_chain``). Pure Python ints, no tensors: it is the oracle every batched
-op of the port is held against, and it feeds the constant tables of
-rns_constants.py.
+``e_chain``) and the canonical one (``e_canonical``), and the Fp/Fq2 roots,
+Legendre symbols and RFC 9380 signs. Pure Python ints, no tensors: it is the
+oracle every batched op of the port is held against, and it feeds the
+constant tables of rns_constants.py.
 """
 
 from __future__ import annotations
@@ -75,6 +76,34 @@ def fp_inv(a: int) -> int:
     return pow(a, P - 2, P)
 
 
+def fp_legendre(a: int) -> int:
+    """Legendre symbol a^((p-1)/2) mod p, in {0, 1, p-1}."""
+    return pow(a, (P - 1) // 2, P)
+
+
+def fp_is_square(a: int) -> bool:
+    return fp_legendre(a) != P - 1
+
+
+def fp_sqrt(a: int) -> int | None:
+    """Square root via a^((p+1)/4) (p ≡ 3 mod 4). None if a is not a QR."""
+    r_ = pow(a, (P + 1) // 4, P)
+    return r_ if r_ * r_ % P == a % P else None
+
+
+def sgn0(a: int) -> int:
+    """RFC-9380 sign of an Fp element (reference src/fields/helpers.rs:159-167)."""
+    return a % 2
+
+
+def sgn0_fq2(a: "Fq2") -> int:
+    """RFC-9380 sign of an Fp2 element (reference src/fields/helpers.rs:169-174)."""
+    sign_0 = a.c0 % 2
+    zero_0 = a.c0 == 0
+    sign_1 = a.c1 % 2
+    return sign_0 | (zero_0 & sign_1)
+
+
 # ---------------------------------------------------------------------------
 # Fq2 = Fp[u] / (u^2 + 1)
 # ---------------------------------------------------------------------------
@@ -141,6 +170,19 @@ class Fq2:
 
     def is_zero(self) -> bool:
         return self.c0 == 0 and self.c1 == 0
+
+    def sqrt(self) -> "Fq2 | None":
+        """Square root in Fq2 (p ≡ 3 mod 4 algorithm, RFC 9380 appendix)."""
+        if self.is_zero():
+            return Fq2.zero()
+        a1 = self.pow((P - 3) // 4)
+        alpha = a1.square() * self
+        x0 = a1 * self
+        if alpha == Fq2((P - 1) % P, 0):
+            return Fq2((-x0.c1) % P, x0.c0)
+        b = (alpha + Fq2.one()).pow((P - 1) // 2)
+        cand = b * x0
+        return cand if cand.square() == self else None
 
 
 #: Nonresidue xi = u + 1 used to build Fq6.
@@ -699,6 +741,45 @@ def final_exponentiation(f: Fq12) -> Fq12:
     t3 = t3 * t1
     t3 = t3 * t6
     return t3 * t4
+
+
+#: The hard-part addition chain above computes f^(3·(p^4-p^2+1)/r), i.e. the
+#: *cube* of the canonical hard part (the reference/zkcrypto chain structure);
+#: since gcd(3, r) = 1 it is a valid, bilinear, non-degenerate pairing.
+HARD_PART_MULTIPLE = 3
+
+#: Base-p digits of the canonical hard-part exponent (p^4-p^2+1)/r, used by the
+#: provably-canonical final exponentiation: m^h = prod_i frob^i(m^{d_i}).
+_H = (P**4 - P**2 + 1) // R
+HARD_PART_DIGITS = tuple((_H // P**i) % P for i in range(4))
+
+
+def final_exponentiation_canonical(f: Fq12) -> Fq12:
+    """f^((p^12-1)/r) with the *exact* canonical exponent.
+
+    Easy part as in final_exponentiation; hard part by base-p digit
+    decomposition h = d0 + d1 p + d2 p^2 + d3 p^3 (0 <= d_i < p), using
+    m^(d_i p^i) = frob^i(m^(d_i)).
+    """
+    t0 = f.frobenius_pow(6)
+    t1 = f.inv()
+    t2 = t0 * t1
+    t1 = t2
+    t2 = t2.frobenius_pow(2)
+    m = t2 * t1  # easy part: f^((p^6-1)(p^2+1)), in the cyclotomic subgroup
+
+    out = Fq12.one()
+    for i, d in enumerate(HARD_PART_DIGITS):
+        acc = Fq12.one()
+        started = False
+        for b in range(d.bit_length() - 1, -1, -1):
+            if started:
+                acc = cyclotomic_square(acc)
+            if (d >> b) & 1:
+                acc = acc * m if started else m
+                started = True
+        out = out * acc.frobenius_pow(i)
+    return out
 
 
 def pairing(p: G1Affine, q: G2Affine) -> Fq12:
