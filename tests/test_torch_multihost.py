@@ -110,6 +110,30 @@ def test_dryrun_multichip_cpu():
     entry.dryrun_multichip(2, device="cpu")
 
 
+def test_initialize_picks_backend_and_device(monkeypatch):
+    """nccl for a rank on a card, gloo on the CPU, unless one is named; the
+    device cuda:<process id> unless named; a card index beyond the host's
+    count raises; one process starts no group. (Card calls stood in for.)"""
+    joined = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: joined.append((backend, kw)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: None)
+    assert multihost.initialize("host0:1234", 2, 1) == torch.device("cuda", 1)
+    assert multihost.initialize("file:///tmp/r", 2, 0, device="cpu") == torch.device("cpu")
+    multihost.initialize("host0:1234", 2, 0, backend="gloo", device="cuda:1")
+    assert multihost.initialize(None, 1, 0, device="cpu") == torch.device("cpu")
+    assert joined == [
+        ("nccl", {"init_method": "tcp://host0:1234", "world_size": 2, "rank": 1}),
+        ("gloo", {"init_method": "file:///tmp/r", "world_size": 2, "rank": 0}),
+        ("gloo", {"init_method": "tcp://host0:1234", "world_size": 2, "rank": 0})]
+    with pytest.raises(RuntimeError, match="no card cuda:2 on this host"):
+        multihost.initialize("host0:1234", 3, 2)
+    with pytest.raises(ValueError, match="needs a coordinator"):
+        multihost.initialize(None, 2, 0, device="cpu")
+
+
 def test_dryrun_multichip_needs_its_cards(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
