@@ -4,6 +4,15 @@ on one CUDA card and hold them to their references.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
+  0. the oracle: build the port's C++ host oracle (native/, g++; a failed
+     build fails the run), make the points with its batch scalar
+     multiplication (held equal to the addition chain on all 2048), and
+     compute the expected value of every element, and of each element of
+     the two-term batch, with it; hold those to a second, independent
+     oracle, the exact-integer refmodel (utils/refmodel.py) in a process
+     pool, on the first 64 elements (the two infinities among them), the
+     two-term batch and the frozen vectors of tests/vectors/pairing_kat.json
+     (e_chain, 9/9); print the oracle's build and batch seconds;
   1. build the CUDA kernels from csrc/ and report nvcc's resource use; for
      the kernels on the tensor-core REDC (cyc_exp.cu, kara_exp.cu,
      kara_full.cu, tower_ops.cu, miller.cu) and the warp kernels (pow_static.cu,
@@ -35,9 +44,7 @@ Phases (any failure exits non-zero; nothing is caught):
      of them at infinity), the launch counters reset just before each and
      checked just after:
        `pairing` (fused prepare+Miller, the miller_fused kernel): all 2048
-         outputs against the
-         exact-integer oracle (utils/refmodel.py, in a process pool started
-         at the beginning) and the frozen vectors of
+         outputs against phase 0's oracle values and the frozen vectors of
          tests/vectors/pairing_kat.json;
        `multi_pairing` with one term (the prepare_g2_lines and miller_run
          kernels): row for row the output of `pairing`;
@@ -131,7 +138,7 @@ import torch
 import torch.distributed as dist
 
 from plonky2_bls12_381_pairing_torch import constants as LC
-from plonky2_bls12_381_pairing_torch import entry
+from plonky2_bls12_381_pairing_torch import entry, native
 from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models import pairing as lmp
 from plonky2_bls12_381_pairing_torch.models import pairing_numden as lnd
@@ -169,6 +176,9 @@ TPU_LIMB_FP = "plonky2_bls12_381_pairing_tpu/ops/fp.py"
 PORT_CSRC = "plonky2_bls12_381_pairing_torch/csrc"
 #: pairings per call and per term: the JAX package's batch per chip
 BATCH = 2048
+#: elements of the batch whose oracle values the exact-integer refmodel
+#: recomputes (the pool's second oracle)
+ORACLE_CHECK = 64
 #: batch of the two-term multi_pairing held to the oracle
 SMALL = 16
 
@@ -452,18 +462,77 @@ def oracle_multi_pairing(p0, q0, p1, q1) -> list[int]:
     return rm.multi_pairing([(p0, q0), (p1, q1)]).coeffs()
 
 
-def points() -> tuple[list, list]:
-    """P_i = (i+1) G1, Q_i = (2i+1) G2 for i < BATCH, with P_5 and Q_6 at
-    infinity."""
+def points_by_addition() -> tuple[list, list]:
+    """P_i = (i+1) G1, Q_i = (2i+1) G2 for i < BATCH, by repeated
+    additions."""
     g1, g2 = rm.G1Affine.generator(), rm.G2Affine.generator()
     g2x2 = g2.add(g2)
     ps, qs = [g1], [g2]
     for _ in range(BATCH - 1):
         ps.append(ps[-1].add(g1))
         qs.append(qs[-1].add(g2x2))
+    return ps, qs
+
+
+def points() -> tuple[list, list]:
+    """P_i = (i+1) G1, Q_i = (2i+1) G2 for i < BATCH from the native
+    oracle's batch scalar multiplication, held equal to the addition chain
+    on all BATCH; then P_5 and Q_6 at infinity."""
+    t = time.perf_counter()
+    ps = native.g1_mul_batch(range(1, BATCH + 1))
+    qs = native.g2_mul_batch([2 * i + 1 for i in range(BATCH)])
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    aps, aqs = points_by_addition()
+    same = sum(p == a and q == b for p, q, a, b in zip(ps, qs, aps, aqs))
+    print(f"[points] native g1/g2_mul_batch {native_s:.2f} s: {same}/{BATCH} pairs equal "
+          f"to the addition chain ({time.perf_counter() - t:.2f} s)")
+    assert same == BATCH == len(ps) == len(qs)
     ps[5] = rm.G1Affine(0, 0, True)
     qs[6] = rm.G2Affine(rm.Fq2(0, 0), rm.Fq2(0, 0), True)
     return ps, qs
+
+
+def kat_points(kat: list) -> tuple[list, list]:
+    """The frozen vectors' points."""
+    kp = [rm.G1Affine(int(v["p_x"], 16), int(v["p_y"], 16), False) for v in kat]
+    kq = [rm.G2Affine(rm.Fq2(int(v["q_x"][0], 16), int(v["q_x"][1], 16)),
+                      rm.Fq2(int(v["q_y"][0], 16), int(v["q_y"][1], 16)), False)
+          for v in kat]
+    return kp, kq
+
+
+def oracle_phase(pool, ps, qs, small, kp, kq, kwant) -> tuple[list, list]:
+    """Phase 0's oracle values: the coefficients of e(P_i, Q_i) for every
+    element and of the two-term product for each element of `small`, from
+    the native oracle, held to the refmodel in `pool` on the first
+    ORACLE_CHECK elements, on `small` and on the frozen vectors (kp, kq ->
+    kwant)."""
+    n = min(ORACLE_CHECK, BATCH)
+    ref_first = pool.map(oracle_pairing, ps[:n], qs[:n])
+    ref_small = pool.map(oracle_multi_pairing, *small)
+    ref_kat = pool.map(oracle_pairing, kp, kq)
+    t = time.perf_counter()
+    native._g1_u64(ps), native._g2_u64(qs)
+    pack_s = time.perf_counter() - t
+    t = time.perf_counter()
+    oracle = [e.coeffs() for e in native.pairing_batch(ps, qs)]
+    batch_s = time.perf_counter() - t
+    oracle_small = [native.multi_pairing_product([p0, p1], [q0, q1]).coeffs()
+                    for p0, q0, p1, q1 in zip(*small)]
+    native_kat = [e.coeffs() for e in native.pairing_batch(kp, kq)]
+    print(f"[oracle] native pairing_batch: {BATCH} pairings in {batch_s:.3f} s "
+          f"({pack_s:.3f} s of it packing the points into limbs)")
+    n_first = sum(a == b for a, b in zip(oracle[:n], ref_first))
+    n_small = sum(a == b for a, b in zip(oracle_small, ref_small))
+    kwant = [w.coeffs() for w in kwant]
+    n_kat = sum(a == b == w for a, b, w in zip(native_kat, ref_kat, kwant))
+    print(f"[oracle] native vs refmodel: first {n}: {n_first}/{n}, two-term "
+          f"{n_small}/{len(oracle_small)}; KAT e_chain {n_kat}/{len(kwant)} "
+          f"(native, refmodel and the frozen vectors)")
+    assert n_first == n and n_small == len(oracle_small) and n_kat == len(kwant)
+    assert oracle[5] == oracle[6] == rm.Fq12.one().coeffs()
+    return oracle, oracle_small
 
 
 def profile_call(name: str, run, host_ops: bool = True) -> dict:
@@ -1356,13 +1425,21 @@ def main() -> int:
 
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=os.cpu_count(), mp_context=ctx) as pool:
+        # -- 0. the oracle ---------------------------------------------------
+        t = time.perf_counter()
+        native.lib()  # built with g++; raises (and fails the run) where it cannot be
+        print(f"[oracle] native build (g++) {time.perf_counter() - t:.1f} s")
         ps, qs = points()
         # unrelated points for the small two-term batch (P_5 at infinity
         # among them)
         small = (ps[:SMALL], qs[SMALL:2 * SMALL], ps[2 * SMALL:3 * SMALL],
                  qs[3 * SMALL:4 * SMALL])
-        oracle = pool.map(oracle_pairing, ps, qs, chunksize=16)
-        oracle_small = pool.map(oracle_multi_pairing, *small, chunksize=1)
+        kat = json.loads(KAT.read_text())["vectors"]
+        kp, kq = kat_points(kat)
+        kwant = [rm.Fq12.from_coeffs([int(h, 16) for h in v["e_chain"]]) for v in kat]
+        oracle, oracle_small = oracle_phase(pool, ps, qs, small, kp, kq, kwant)
+        pool.shutdown()  # its work is done: no worker waits through the run
+        mark("the oracle")
 
         # -- 1. build ------------------------------------------------------
         t = time.perf_counter()
@@ -1918,14 +1995,8 @@ def main() -> int:
         print(f"[pairing] vs oracle: {BATCH - len(bad)}/{BATCH} bit-exact")
         assert not bad, f"pairing disagrees with the oracle at {bad[:8]}"
 
-        kat = json.loads(KAT.read_text())["vectors"]
-        kp = [rm.G1Affine(int(v["p_x"], 16), int(v["p_y"], 16), False) for v in kat]
-        kq = [rm.G2Affine(rm.Fq2(int(v["q_x"][0], 16), int(v["q_x"][1], 16)),
-                          rm.Fq2(int(v["q_y"][0], 16), int(v["q_y"][1], 16)), False)
-              for v in kat]
         kout = mpr.pairing(G1Affine.encode(kp, device=dev), G2Affine.encode(kq, device=dev))
         kgot = list(tower.decode(kout))[: len(kat)]
-        kwant = [rm.Fq12.from_coeffs([int(h, 16) for h in v["e_chain"]]) for v in kat]
         nkat = sum(g == w for g, w in zip(kgot, kwant))
         print(f"[pairing] KAT e_chain: {nkat}/{len(kat)}")
         assert nkat == len(kat)

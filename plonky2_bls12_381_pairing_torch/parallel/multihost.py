@@ -92,17 +92,26 @@ def encode_local_batch(ps_local, qs_local, mesh: pm.Mesh):
             G2Affine.encode(qs_local, device=mesh.device))
 
 
-def run(batch_per_process: int = 64, device=None):
-    """The sharded RNS pairing and product on this process's block: the
-    points k*G1, k*G2 for k = 1 + rank*batch ... (rank + 1)*batch, made with
-    the port's refmodel (the port has no copy of native/'s batch point
-    multiplication yet). Returns (this rank's e rows, the product)."""
+def local_points(rank: int, batch_per_process: int) -> tuple[list, list]:
+    """The refmodel points k*G1, k*G2 for k = 1 + rank*batch ...
+    (rank + 1)*batch: made by the port's native oracle's batch scalar
+    multiplication where it can be built, as the JAX package's run makes
+    them, else by the refmodel's (the same points)."""
+    from .. import native
     from ..utils import refmodel as rm
 
-    mesh = global_mesh(device)
-    ks = range(1 + mesh.rank * batch_per_process, 1 + (mesh.rank + 1) * batch_per_process)
+    ks = range(1 + rank * batch_per_process, 1 + (rank + 1) * batch_per_process)
+    if native.available():
+        return native.g1_mul_batch(ks), native.g2_mul_batch(ks)
     g1, g2 = rm.G1Affine.generator(), rm.G2Affine.generator()
-    ps, qs = encode_local_batch([g1.mul(k) for k in ks], [g2.mul(k) for k in ks], mesh)
+    return [g1.mul(k) for k in ks], [g2.mul(k) for k in ks]
+
+
+def run(batch_per_process: int = 64, device=None):
+    """The sharded RNS pairing and product on this process's block, the
+    points of local_points. Returns (this rank's e rows, the product)."""
+    mesh = global_mesh(device)
+    ps, qs = encode_local_batch(*local_points(mesh.rank, batch_per_process), mesh)
     e, gt = pm.rns_pairing_and_product_sharded(mesh)(ps, qs)
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)

@@ -343,10 +343,13 @@ _FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "plonky2_bls12_381_pairing_tpu")
 
 
 def test_port_imports_nothing_of_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "scaling_report_torch.py",
-                                          ROOT / "tests" / "torch_dist_worker.py"]
-    assert len(files) > 10
+    tools = sorted((ROOT / "tools").glob("*_torch.py")) + [ROOT / "tools" /
+                                                           "torch_tool_common.py"]
+    assert len(tools) == 5
+    files = sorted(PORT.rglob("*.py")) + tools + [ROOT / "chip_smoke.py",
+                                                  ROOT / "scaling_report_torch.py",
+                                                  ROOT / "tests" / "torch_dist_worker.py"]
+    assert len(files) > 10 and (PORT / "native" / "__init__.py") in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import torch_dist_worker as worker
-from plonky2_bls12_381_pairing_torch import entry, interop
+from plonky2_bls12_381_pairing_torch import entry, interop, native
 from plonky2_bls12_381_pairing_torch.models import pairing as tmp_
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as tmpr
 from plonky2_bls12_381_pairing_torch.ops import curve, fq12
@@ -88,6 +88,10 @@ def test_limb_pairing_and_product_sharded(tmp_path):
 
 
 def test_multihost_run(tmp_path):
+    """Each rank's e rows and the product those of the refmodel's points
+    k*G1, k*G2; the ranks make them with the port's native oracle, built
+    here first so that they load it and do not each build it."""
+    native.available()
     ranks = spawn(tmp_path, worker.multihost_rank, 2, 2)
     assert not any(r["jax"] for r in ranks)
     g1, g2 = rm.G1Affine.generator(), rm.G2Affine.generator()
