@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing is caught):
      at ragged tile counts, the tower ops with an operand of row stride 0;
      the square runs also at the paths' run lengths, timed there too; the
      Miller kernels on the run's own points, miller_run with one and two
-     terms;
+     terms, and with 65 (the run's points rolled, one roll per term) at
+     FEW_ROWS packed rows, a partial tile;
      the warp kernels also at 1, 3, 5 and 127 rows, the limb tower kernel,
      conv, mont_reduce, mont_mul and mont_pow on row views too, conv and
      mont_mul with stride-0 operands;
@@ -48,7 +49,8 @@ Phases (any failure exits non-zero; nothing is caught):
          tests/vectors/pairing_kat.json;
        `multi_pairing` with one term (the prepare_g2_lines and miller_run
          kernels): row for row the output of `pairing`;
-       `pairing_check` with two terms: [P, -P] x [Q, Q] true everywhere,
+       `pairing_check` with two terms (one prepare_g2_lines launch for
+         both, their G2 points stacked): [P, -P] x [Q, Q] true everywhere,
          [P, P] x [Q, Q] true only where an input is at infinity; and a small
          `multi_pairing` batch of unrelated points against the oracle;
        `pairing(impl="karabina")` (the Karabina final exponentiation): all
@@ -111,7 +113,27 @@ Phases (any failure exits non-zero; nothing is caught):
          vectors (e_chain); `final_exponentiation_canonical` of the limb
          Miller loop's output under "fused": its cube the limb `pairing` on
          2048/2048, and the frozen vectors (e_canonical);
-       (d) entry.dryrun_multichip(1) on the card.
+       (d) entry.dryrun_multichip(1) on the card;
+  8. many terms, at B = 2048 on phase 0's points, each call one
+     prepare_g2_lines and one miller_run launch besides the final
+     exponentiation's (exact counts):
+       (a) `pairing_check` with 130 terms, true by construction: term t <
+         129 is (P_{(i+2t) mod B}, Q_i), the packed rows of phase 0's P
+         rolled by t on the card; term 129 is (-S_i G1, Q_i), S_i the sum of
+         the other terms' G1 scalars of element i (native g1_mul_batch). True
+         on 2048/2048; with term 129's scalar changed by one, true only where
+         Q_i is at infinity (element 6). Then the same with 65 terms; a
+         kernel that read a wrong term fails one of the two;
+       (b) `multi_pairing` with 65 terms of unrelated points at SMALL
+         elements: each element native.multi_pairing_product's of its 65
+         pairs, bit for bit;
+       (c) each check captured (utils/capture.py) on its true set, replayed
+         on the perturbed set and on the true set and held to the eager
+         outputs; the 130-term buffers are freed before the 65-term ones are
+         made;
+       (d) eager, captured and device ms per call at 130 and 65 terms, and
+         one miller_run launch of 65 terms at B = 2048 (the check's own
+         coefficients, one buffer) timed beside its bound.
 The second-to-last lines are the card's name and power limit and a JSON
 object with each kernel's numbers; the last line is
 {"ok": true, "device": {...}}.
@@ -181,6 +203,11 @@ BATCH = 2048
 ORACLE_CHECK = 64
 #: batch of the two-term multi_pairing held to the oracle
 SMALL = 16
+#: phase 8's numbers of terms (multi_pairing at SMALL elements with the
+#: first), and the packed rows of phase 2's check of miller_run with the
+#: first against its plain version
+MANY_TERMS = (65, 130)
+FEW_ROWS = 3
 
 # Peak rates of one H100 SXM at its full 700 W limit (NVIDIA data sheet):
 # HBM at 3.35 TB/s; int32 multiply-adds on 64 INT32 lanes per SM x 132 SMs at
@@ -670,9 +697,11 @@ EXPECTED_LAUNCHES = {
     # the fused prepare+Miller loop is one kernel
     "pairing_karabina": {**final_exp_launches("karabina"), "miller_fused": 1},
     "pairing": {**_FINAL_EXP, "miller_fused": 1},
-    # one prepare kernel per term, one Miller loop kernel for all terms
-    "multi_pairing_1": {**_FINAL_EXP, "prepare_g2_lines": 1, "miller_run": 1},
-    "pairing_check_2": {**_FINAL_EXP, "prepare_g2_lines": 2, "miller_run": 1},
+    # one prepare kernel and one Miller loop kernel for all terms (phase 8:
+    # MANY_TERMS of them)
+    **{name: {**_FINAL_EXP, "prepare_g2_lines": 1, "miller_run": 1}
+       for name in ("multi_pairing_1", "pairing_check_2", f"multi_pairing_{MANY_TERMS[0]}",
+                    *(f"pairing_check_{n}" for n in MANY_TERMS))},
 }
 #: Kernels that no path launches: the Miller loops' ell and square, which
 #: the Miller kernels now do inside (tower.mul_by_014 / square /
@@ -844,10 +873,11 @@ def inv_mul_records(n: int) -> int:
     return 3 * levels + FERMAT_PRODUCTS
 
 
-def drive(name: str, run):
-    """One call of a path with the launch counters (both tiers') reset just
-    before and read and checked just after. An expected count is a number,
-    or None for a kernel that must have been launched at least once."""
+def drive(name: str, run, batch: int = BATCH):
+    """One call of a path (of `batch` elements) with the launch counters
+    (both tiers') reset just before and read and checked just after. An
+    expected count is a number, or None for a kernel that must have been
+    launched at least once."""
     torch.cuda.synchronize()
     cuda_build.reset_all_launches()
     t = time.perf_counter()
@@ -855,7 +885,7 @@ def drive(name: str, run):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     counts = cuda_build.all_launches()
-    print(f"[{name}] B={BATCH}: first call {first_s:.2f} s, launches "
+    print(f"[{name}] B={batch}: first call {first_s:.2f} s, launches "
           f"{ {k: v for k, v in counts.items() if v} }")
     for k, n in counts.items():
         want = EXPECTED_LAUNCHES[name].get(k, 0)
@@ -1407,6 +1437,128 @@ def sharding_phase(card: str, drive, path_counts: dict, pts: dict) -> dict:
     return res
 
 
+def rolled(p: G1Affine, t: int) -> G1Affine:
+    """p with its packed rows rolled by t on the card: element i holds
+    P_{(i + 2t) mod B} (two elements a row)."""
+    return G1Affine(*(torch.roll(getattr(p, k), -t, 0) for k in ("x", "y", "infinity")))
+
+
+def check_terms(p: G1Affine, q: G2Affine, scalars: np.ndarray, n_terms: int,
+                delta: int) -> tuple[list, list]:
+    """pairing_check's terms, true by construction for delta = 0: term t <
+    n_terms - 1 is (P_{(i+2t) mod B}, Q_i); the last is (-(S_i - delta) G1,
+    Q_i), S_i the sum of the others' G1 scalars of element i (`scalars`: P_j
+    = scalars[j] G1). With delta = 1 the product is e(G1, Q_i), one only
+    where Q_i is at infinity."""
+    idx = (np.arange(BATCH)[:, None] + 2 * np.arange(n_terms - 1)[None, :]) % BATCH
+    last = native.g1_mul_batch([(delta - int(v)) % rm.R for v in scalars[idx].sum(axis=1)])
+    return ([rolled(p, t) for t in range(n_terms - 1)]
+            + [G1Affine.encode(last, device=p.y.device)], [q] * n_terms)
+
+
+def many_terms_phase(card: str, drive, path_counts: dict, kern: dict, pts: dict) -> dict:
+    """Phase 8 (module docstring): multi_pairing and pairing_check with 65
+    and 130 terms at B = 2048. pts: the run's points on the card (p, q) and
+    on the host (ps, qs)."""
+    p, q, ps, qs = pts["p"], pts["q"], pts["ps"], pts["qs"]
+    dev, rows = p.y.device, p.y.shape[0]
+    res: dict = {"card": card}
+    torch.cuda.empty_cache()
+    # (b) 65 terms of unrelated points at SMALL elements against the oracle
+    n = MANY_TERMS[0]
+    sp = [ps[SMALL * t:SMALL * (t + 1)] for t in range(n)]
+    sq = [qs[BATCH - SMALL * (t + 1):BATCH - SMALL * t] for t in range(n)]
+    want = [native.multi_pairing_product([x[i] for x in sp], [x[i] for x in sq]).coeffs()
+            for i in range(SMALL)]
+    enc_p = [G1Affine.encode(x, device=dev) for x in sp]
+    enc_q = [G2Affine.encode(x, device=dev) for x in sq]
+    name = f"multi_pairing_{n}"
+    got, path_counts[name] = drive(name, lambda: mpr.multi_pairing(enc_p, enc_q), batch=SMALL)
+    got_rows = fp.decode(got)[:SMALL]
+    n_eq = sum(list(got_rows[i]) == want[i] for i in range(SMALL))
+    print(f"[{name}] B={SMALL} unrelated points, {n} terms, vs oracle: "
+          f"{n_eq}/{SMALL} bit-exact")
+    assert n_eq == SMALL
+    del got, enc_p, enc_q
+
+    # (a), (c), (d): the checks true by construction, 130 terms first
+    scalars = np.array([0 if x.infinity else i + 1 for i, x in enumerate(ps)], dtype=np.int64)
+    for n in sorted(MANY_TERMS, reverse=True):
+        name = f"pairing_check_{n}"
+        true_set = check_terms(p, q, scalars, n, 0)
+        false_set = check_terms(p, q, scalars, n, 1)
+        run = lambda: mpr.pairing_check(*true_set)
+        ok, path_counts[name] = drive(name, run)
+        n_true = int(ok.reshape(-1)[:BATCH].sum().item())
+        print(f"[{name}] true by construction on {n_true}/{BATCH}")
+        assert n_true == BATCH
+        bad = mpr.pairing_check(*false_set)
+        where = np.flatnonzero(bad.reshape(-1)[:BATCH].cpu().numpy()).tolist()
+        print(f"[{name}] the last term's scalar changed by one: true only at {where}")
+        assert where == [6]
+        eager = host_times(run, 3)
+        prof = profile_call(name, run)
+        rec = {"terms": n, "batch": BATCH, "eager_ms": statistics.median(eager),
+               "eager_ms_min": min(eager), "eager_ms_max": max(eager),
+               "device_ms": prof["device_ms"], "kernel_launches": prof["kernel_launches"]}
+        if n == MANY_TERMS[0]:
+            # one miller_run launch over the check's own operands: the 65
+            # terms' coefficients prepared in one buffer, P.y, P.x and the
+            # skip masks stacked once, each read in place
+            tp = true_set[0]
+            prepared = mpr.prepare_g2_stepmajor(mpr._stack_g2(true_set[1]))
+            py, px = torch.stack([x.y for x in tp]), torch.stack([x.x for x in tp])
+            skip = torch.stack([((x.infinity != 0) | (q.infinity != 0)).to(torch.int32)
+                                for x in tp])
+            f0 = tower.one((rows,), dev)
+            margs = (f0, list(prepared.unbind(1)), list(py.unbind(0)), list(px.unbind(0)),
+                     list(skip.unbind(0)), _DO_SQUARE)
+            ms = time_kernel(lambda i: kernels.miller_run(*margs), 3)
+            bound = bound_ms(nbytes(f0, prepared, py, px, skip) + len(_DO_SQUARE) * 4
+                             + rows * 12 * RC.LANES * 4, miller_ops(RC.PACK * rows, _DO_SQUARE,
+                                                                    terms=n))
+            print(f"[miller_run] {n} terms at {tuple(prepared.shape)}: {ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms by {bound[1]} [int32 only {bound[2]:.4f}]; on {card}")
+            kern["miller_run"].setdefault("extra", {}).update({
+                "ms_65_terms": ms, "bound_ms_65_terms": bound[0],
+                "bound_int32_ms_65_terms": bound[2]})
+            rec.update({"miller_run_ms": ms, "miller_run_bound_ms": bound[0],
+                        "miller_run_bound_by": bound[1]})
+            del prepared, margs, py, px, skip
+        # captured on the true set, replayed on the perturbed set and on the
+        # true set, held to the eager outputs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step = capture(mpr.pairing_check, *true_set)
+        peak = torch.cuda.max_memory_allocated() - before
+        for k, (args, want_out) in enumerate(((false_set, bad), (true_set, ok))):
+            same = torch.equal(step(*args), want_out)
+            print(f"[capture {name}] input set {k + 1} ({'perturbed' if k == 0 else 'true'}): "
+                  f"replay equals the eager call: {same}")
+            assert same, (name, k)
+        captured = host_times(lambda: step(*true_set), 3)
+        cprof = device_profile(lambda: step(*true_set), host_ops=False)
+        rec.update({"captured_ms": statistics.median(captured), "captured_ms_min": min(captured),
+                    "captured_ms_max": max(captured), "replay_device_ms": cprof["device_ms"],
+                    "capture_s": step.capture_seconds, "capture_peak_bytes_above": peak})
+        del step, true_set, false_set, ok, bad
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        dev_note = ("not measured (the profiler saw no kernel)" if rec["device_ms"] is None
+                    else f"{rec['device_ms']:.1f} ms")
+        rep_note = ("not measured" if rec["replay_device_ms"] is None
+                    else f"{rec['replay_device_ms']:.1f} ms")
+        print(f"[{name}] B={BATCH}: eager {rec['eager_ms']:.1f} ms (min {min(eager):.1f}, max "
+              f"{max(eager):.1f}), device {dev_note}; captured {rec['captured_ms']:.1f} ms "
+              f"(min {min(captured):.1f}, max {max(captured):.1f}), replay device {rep_note}; "
+              f"capture {rec['capture_s']:.2f} s, peak {peak / 2**30:.1f} GiB above the run's; on {card}")
+        res[name] = rec
+        mark(f"{name} driven, timed and captured")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1671,13 +1823,13 @@ def main() -> int:
         f0, g2, skip = fused[0], fused[1:6], fused[8]
         assert int(skip.sum().item()) == 2 * RC.SUB
 
-        def ragged(name, wrapper, plain, args, shape_note):
-            """Check at the paths' rows and at the ragged counts: the row
-            operands cut to n rows (contiguous copies of the step-major
-            coefficients), the flags as they are."""
+        def ragged(name, wrapper, plain, args, shape_note, counts=None):
+            """Check at the paths' rows and at the ragged counts (or at
+            `counts`): the row operands cut to n rows (contiguous copies of
+            the step-major coefficients), the flags as they are."""
             got = wrapper(*args)
             err = check(name, got, plain(*args), shape_note)
-            for n in ragged_rows(rows):
+            for n in ragged_rows(rows) if counts is None else counts:
                 cut = tuple(
                     [x[:, :n].contiguous() if x.dim() == 5 else x[:n] for x in a]
                     if isinstance(a, list) else a[:n] if torch.is_tensor(a) else a
@@ -1709,6 +1861,18 @@ def main() -> int:
         for t, args in m_args.items():
             err = max(err, ragged("miller_run", kernels.miller_run, kernels.miller_run_plain,
                                   args, f"{t} x coeffs {tuple(coeffs.shape)}")[1])
+        # 65 terms in one launch at FEW_ROWS packed rows, a partial tile (the
+        # plain version's time is its launches, which do not shrink with the
+        # rows): term t the run's P rolled by t rows, the coefficients one
+        # tensor repeated (term stride 0)
+        few = [rolled(p_dev, t) for t in range(MANY_TERMS[0])]
+        args65 = (f0[:FEW_ROWS], [coeffs[:, :FEW_ROWS]] * len(few),
+                  [x.y[:FEW_ROWS] for x in few], [x.x[:FEW_ROWS] for x in few],
+                  [((x.infinity != 0) | (q_dev.infinity != 0)).to(torch.int32)[:FEW_ROWS]
+                   for x in few], _DO_SQUARE)
+        err = max(err, ragged("miller_run", kernels.miller_run, kernels.miller_run_plain,
+                              args65, f"{len(few)} terms at {FEW_ROWS} rows:", counts=())[1])
+        del few, args65
         m_ms = {t: time_kernel(lambda i, a=args: kernels.miller_run(*a), 5)
                 for t, args in m_args.items()}
         print(f"[miller_run] {m_ms[1]:.4f} ms with one term, {m_ms[2]:.4f} ms with two")
@@ -2232,6 +2396,11 @@ def main() -> int:
             "kat_canonical": [rm.Fq12.from_coeffs([int(h, 16) for h in v["e_canonical"]])
                               for v in kat]})
         print(json.dumps({"sharding": sres}))
+
+        # -- 8. many terms ------------------------------------------------------
+        mres = many_terms_phase(card, drive, path_counts, kern,
+                                {"p": p_dev, "q": q_dev, "ps": ps, "qs": qs})
+        print(json.dumps({"many_terms": mres}))
 
     all_kernels = cuda_build.all_launches()
     for name in all_kernels:

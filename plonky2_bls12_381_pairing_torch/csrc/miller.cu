@@ -40,10 +40,10 @@
 // miller_run reads each (step, term)'s six coefficient residues straight
 // from device memory, 128 consecutive int32 per component, one (step, term)
 // ahead of their use, so that the load is in flight during the previous
-// one's arithmetic. The terms' pointers come by value in the launch's
-// parameters (a __grid_constant__ Terms of up to MILLER_MAX_TERMS), so that
-// a launch reads no table the host wrote for it, and a CUDA graph that
-// captured the launch replays it with the pointers it was captured with.
+// one's arithmetic. The terms come as one base pointer and strides per
+// operand (Terms), so that one launch takes any number of terms, reads no
+// table the host wrote for it, and replays from a CUDA graph with the
+// pointers it was captured with.
 
 #include "rns_lines.cuh"
 #include "rns_tile.cuh"
@@ -55,19 +55,17 @@ using namespace rns;
 constexpr int TILE = RNS_TC_ROWS;
 constexpr int THREADS = TILE * LANES;
 
-// One term of miller_run: its step-major coefficients (nsteps, rows, 3, 2,
-// 128) and its P.y, P.x and skip mask, (rows, 128) each; all int32.
-struct Term {
+// The terms of one miller_run launch, each operand a base pointer and
+// strides in int32 elements, held in 64 bits (130 terms' coefficients at
+// 1,024 packed rows are 6.95e9 int32): term t's coefficients of step j, a
+// (rows, 3, 2, 128) block, at coeffs + j * coeff_step + t * coeff_term; its
+// P.y, P.x and skip mask, (rows, 128) each, at py + t * py_term, and so on.
+struct Terms {
   const int* coeffs;
   const int* py;
   const int* px;
   const int* skip;
-};
-
-// The terms of one launch (ops/rns/kernels.py _MillerTerms).
-constexpr int MILLER_MAX_TERMS = 64;
-struct Terms {
-  Term t[MILLER_MAX_TERMS];
+  long long coeff_step, coeff_term, py_term, px_term, skip_term;
 };
 
 // f <- f where keep, else f * ((d0 + d1 v) + (d4 v) w).
@@ -91,21 +89,18 @@ __device__ __forceinline__ void load6(int (&v)[6], const int* p, const Row& r, i
 // f0: rows of (12, 128), sf ints apart; tt: nterms terms; flags: nsteps
 // do-square flags; out: (rows, 12, 128).
 __global__ void __launch_bounds__(THREADS, 1)
-    miller_run_kernel(const int* __restrict__ f0, long long sf,
-                      const __grid_constant__ Terms tt, int nterms,
+    miller_run_kernel(const int* __restrict__ f0, long long sf, const Terms tt, int nterms,
                       const int* __restrict__ flags, int nsteps, int* __restrict__ out,
                       int rows) {
   __shared__ TcSmem<TILE> s;
   const Block b = enter(s);
   const Row r = row_of<TILE>(blockIdx.x, rows);
-  const size_t step = static_cast<size_t>(rows) * 6 * LANES;
   int f[12];
   load12m(f, f0, sf, r, b.lane);
 
   const int total = nsteps * nterms;
   int nxt[6];
-  const Term* terms = tt.t;
-  if (total > 0) load6(nxt, terms[0].coeffs, r, b.lane);
+  if (total > 0) load6(nxt, tt.coeffs, r, b.lane);
   int i = 0;
   for (int j = 0; j < nsteps; ++j) {
     for (int t = 0; t < nterms; ++t, ++i) {
@@ -115,12 +110,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (i + 1 < total) {
         const int tn = t + 1 < nterms ? t + 1 : 0;
         const int jn = t + 1 < nterms ? j : j + 1;
-        load6(nxt, terms[tn].coeffs + jn * step, r, b.lane);
+        load6(nxt, tt.coeffs + jn * tt.coeff_step + tn * tt.coeff_term, r, b.lane);
       }
-      const Term term = terms[t];
-      const int y = load1m(term.py, r, b.lane);
-      const int x = load1m(term.px, r, b.lane);
-      const bool keep = load1m(term.skip, r, b.lane) != 0;
+      const int y = load1m(tt.py + t * tt.py_term, r, b.lane);
+      const int x = load1m(tt.px + t * tt.px_term, r, b.lane);
+      const bool keep = load1m(tt.skip + t * tt.skip_term, r, b.lane) != 0;
       // rows 0:2 = c0 P.y, rows 2:4 = c1 P.x, one stacked REDC
       int sc[4] = {mul_m(cur[0], y, b.c), mul_m(cur[1], y, b.c), mul_m(cur[2], x, b.c),
                    mul_m(cur[3], x, b.c)};
@@ -207,15 +201,19 @@ Points points(const int* rx, long long srx, const int* ry, long long sry, const 
 
 }  // namespace
 
-// terms: a host Terms whose first nterms entries hold each term's four
-// pointers (coeffs, py, px, skip), copied into the launch's parameters.
-extern "C" int miller_run_launch(const int* f0, long long sf, const void* terms, int nterms,
+// The nterms terms' operands as Terms describes them: coeffs with its step
+// and term strides, py, px and skip with their term strides.
+extern "C" int miller_run_launch(const int* f0, long long sf, const int* coeffs,
+                                 long long coeff_step, long long coeff_term, const int* py,
+                                 long long py_term, const int* px, long long px_term,
+                                 const int* skip, long long skip_term, int nterms,
                                  const int* flags, int nsteps, int* out, int rows,
                                  void* stream) {
-  if (nterms < 1 || nterms > MILLER_MAX_TERMS) return static_cast<int>(cudaErrorInvalidValue);
+  if (nterms < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0) {
+    const Terms tt{coeffs, py, px, skip, coeff_step, coeff_term, py_term, px_term, skip_term};
     miller_run_kernel<<<tiles(rows), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        f0, sf, *static_cast<const Terms*>(terms), nterms, flags, nsteps, out, rows);
+        f0, sf, tt, nterms, flags, nsteps, out, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,11 +4,13 @@ package's models/pairing_rns.py).
   pairing(P, Q)                   the fused prepare+Miller loop (one
                                   kernel, kernels.miller_fused), then the
                                   final exponentiation;
-  multi_pairing / pairing_check   the split form: prepare_g2_stepmajor (one
-                                  kernel per term, kernels.prepare_g2_lines),
-                                  the Miller loop over the T terms' line
-                                  coefficients (one kernel, kernels.miller_run),
-                                  one final exponentiation of the product.
+  multi_pairing / pairing_check   the split form: prepare_g2_stepmajor of
+                                  the T terms' G2 points stacked (one
+                                  kernel, kernels.prepare_g2_lines), the
+                                  Miller loop over the T terms' line
+                                  coefficients (one kernel for any T,
+                                  kernels.miller_run), one final
+                                  exponentiation of the product.
 
 Each loop's plain PyTorch form (prepare_g2_stepmajor_plain,
 miller_loop_fused_plain; kernels.miller_run_plain for the split loop) gives
@@ -129,8 +131,8 @@ def miller_loop(ps, prepared_stepmajor, q_infinities=None) -> torch.Tensor:
     tensors from prepare_g2_stepmajor; q_infinities: the G2 points' packed
     infinity masks (None: no G2 point at infinity). Returns f:
     (..., 12, LANES). The accumulation is kernels.miller_run (one kernel on a
-    card for up to kernels.MILLER_MAX_TERMS terms); its rows are those of
-    miller_steps_raw."""
+    card for any number of terms, which reads coefficient tensors that are
+    views of one buffer in place); its rows are those of miller_steps_raw."""
     if not isinstance(ps, (list, tuple)):
         ps = [ps]
         prepared_stepmajor = [prepared_stepmajor]
@@ -406,11 +408,20 @@ def op_counts(batch: int = 2048) -> dict:
     return total
 
 
+def _stack_g2(qs: list) -> G2Affine:
+    """The T terms' G2 points along a new leading axis (T, batch...)."""
+    return G2Affine(*(torch.stack([getattr(q, k) for q in qs]) for k in ("x", "y", "infinity")))
+
+
 def multi_pairing(ps: list, qs: list) -> torch.Tensor:
     """prod_t e(P_t, Q_t) per batch element: the T terms' Miller loops share
-    one accumulator and one final exponentiation."""
-    prepared = [prepare_g2_stepmajor(q) for q in qs]
-    f = miller_loop(ps, prepared, [q.infinity for q in qs])
+    one accumulator and one final exponentiation. The T G2 points are
+    stacked along a new leading axis and prepared in one call, (68, T,
+    batch..., 3, 2, LANES); the Miller loop takes each term's slice of that
+    buffer, a view, so no coefficient is copied. A term's rows are those of
+    its own preparation: the line steps work row by row."""
+    prepared = prepare_g2_stepmajor(_stack_g2(qs))
+    f = miller_loop(ps, list(prepared.unbind(1)), [q.infinity for q in qs])
     return final_exponentiation(f)
 
 

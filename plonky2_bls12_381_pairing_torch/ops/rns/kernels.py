@@ -12,7 +12,7 @@ ops/rns/pallas.py on the pairing's paths) and their plain PyTorch versions.
   pow_static_steps(a, exponent)   the same kernel's recording build, for the
                                   witness trace's chains (csrc/pow_static.cu)
   miller_run(f0, coeffs, py, px, skip, flags)
-                                  <- pallas.miller_run, for 1 <= T <= 64 terms
+                                  <- pallas.miller_run, for any T >= 1 terms
                                                              (csrc/miller.cu)
   miller_fused(f0, rx, ry, rz, qx, qy, py, px, skip, flags)
                                   <- models/pairing_rns.py miller_loop_fused,
@@ -38,7 +38,6 @@ limb tier's kernels (ops/kernels/) share.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -79,7 +78,8 @@ _KERNELS = {
     "pow_static": ("pow_static.cu", "pow_static_launch",
                    [_PTR, _PTR, _PTR, _INT, _PTR, _INT, _PTR]),
     "miller_run": ("miller.cu", "miller_run_launch",
-                   [_PTR, _STRIDE, _PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR]),
+                   [_PTR, _STRIDE, _PTR, _STRIDE, _STRIDE] + [_PTR, _STRIDE] * 3
+                   + [_INT, _PTR, _INT, _PTR, _INT, _PTR]),
     "miller_fused": ("miller.cu", "miller_fused_launch",
                      [_PTR, _STRIDE] * 6 + [_PTR] * 4 + [_INT, _PTR, _INT, _PTR]),
     "prepare_g2_lines": ("miller.cu", "prepare_g2_lines_launch",
@@ -500,11 +500,13 @@ def miller_run(f0: torch.Tensor, coeffs_stepmajor, py, px, skip,
                do_square_flags) -> torch.Tensor:
     """The Miller accumulation of T >= 1 terms (one ell per term and line
     triple, a square after the steps whose flag is set) from the accumulator
-    f0; one launch takes up to MILLER_MAX_TERMS terms. coeffs_stepmajor, py,
-    px, skip: one term's tensor each, or lists of T; coeffs (steps,
-    batch..., 3, 2, LANES); py, px, skip (batch..., LANES); f0 (batch..., 12,
-    LANES), any row stride; all int32. The conjugation for a negative loop
-    parameter is the caller's."""
+    f0, in one launch for any T. coeffs_stepmajor, py, px, skip: one term's
+    tensor each, or lists of T; coeffs (steps, batch..., 3, 2, LANES); py,
+    px, skip (batch..., LANES); f0 (batch..., 12, LANES), any row stride; all
+    int32. An operand's terms that are views of one buffer at a uniform
+    pointer stride (the term slices of one prepare_g2_stepmajor output, or
+    one tensor repeated) are read in place; others are stacked on the card
+    first. The conjugation for a negative loop parameter is the caller's."""
     flags = tuple(int(bool(v)) for v in do_square_flags)
     terms = [_as_terms(x) for x in (coeffs_stepmajor, py, px, skip)]
     if len({len(x) for x in terms}) != 1 or not terms[0]:
@@ -517,34 +519,43 @@ def miller_run(f0: torch.Tensor, coeffs_stepmajor, py, px, skip,
     return _miller_run_kernel(f0, terms, flags)
 
 
-#: Terms one miller_run launch takes (csrc/miller.cu MILLER_MAX_TERMS).
-MILLER_MAX_TERMS = 64
-
-
-class _MillerTerms(ctypes.Structure):
-    """csrc/miller.cu's Terms: per term the pointers of its step-major
-    coefficients, P.y, P.x and skip mask, passed by value in the launch's
-    parameters."""
-
-    _fields_ = [("t", _PTR * (4 * MILLER_MAX_TERMS))]
+def _term_operand(ts: list, shape: tuple, steps: bool) -> tuple[torch.Tensor, int, int]:
+    """One operand's T tensors, each of `shape`, as miller_run's kernel reads
+    them: a tensor to keep alive until the launch is enqueued, the step
+    stride of the coefficients (steps: each term's tensor is dense but for
+    its leading step axis; else it is dense) and the term stride, in int32
+    elements. Tensors of one layout at a uniform pointer stride (0 included:
+    one tensor repeated) are read in place; any others are stacked on the
+    device first."""
+    for t in ts:
+        _check(t, shape, contiguous=False)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+    first = ts[0]
+    step = first.stride(0) if steps else 0
+    dense = all((t[0] if steps and len(t) else t).is_contiguous()
+                and (not steps or len(t) < 2 or t.stride(0) == step) for t in ts)
+    gap = ts[1].data_ptr() - first.data_ptr() if len(ts) > 1 else 0
+    if dense and gap % first.element_size() == 0 and all(
+            t.data_ptr() == first.data_ptr() + i * gap for i, t in enumerate(ts)):
+        return first, step, gap // first.element_size()
+    st = torch.stack(ts)
+    return st, st.stride(1) if steps else 0, st.stride(0)
 
 
 def _miller_run_kernel(f0: torch.Tensor, terms: list, flags: tuple) -> torch.Tensor:
-    """miller_run's launch: the terms' (coeffs, py, px, skip) pointers go to
-    the kernel by value in its parameters, so that nothing is copied to the
-    card for them (and a CUDA graph replays the launch as captured)."""
+    """miller_run's launch: each operand of the terms goes to the kernel as
+    one base pointer and its strides (_term_operand), so that nothing is
+    copied to the card for them, a CUDA graph replays the launch as
+    captured, and one launch takes any number of terms."""
     batch = tuple(terms[1][0].shape[:-1])
-    n = len(terms[0])
-    if n > MILLER_MAX_TERMS:
-        raise ValueError(f"miller_run takes at most {MILLER_MAX_TERMS} terms, got {n}")
-    arg = _MillerTerms()
-    for i, (c, y, x, sk) in enumerate(zip(*terms)):
-        _check(c, (len(flags), *batch, 3, 2, LANES))
-        arg.t[4 * i:4 * i + 4] = [c.data_ptr()] + [_row_operand(t, batch).data_ptr()
-                                                   for t in (y, x, sk)]
+    coeffs, c_step, c_term = _term_operand(terms[0], (len(flags), *batch, 3, 2, LANES),
+                                           steps=True)
+    rows_ = [_term_operand(ts, (*batch, LANES), steps=False) for ts in terms[1:]]
     f0v, stride = _rows(f0, batch, (12, LANES))
     out = torch.empty((*batch, 12, LANES), dtype=torch.int32, device=f0.device)
-    _call("miller_run", f0.device, f0v.data_ptr(), stride, ctypes.addressof(arg), n,
+    _call("miller_run", f0.device, f0v.data_ptr(), stride, coeffs.data_ptr(), c_step, c_term,
+          *(v for t, _, term in rows_ for v in (t.data_ptr(), term)), len(terms[0]),
           _int_arg(("flags", flags), flags, f0.device).data_ptr(), len(flags),
           out.data_ptr(), math.prod(batch))
     return out

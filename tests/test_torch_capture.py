@@ -156,22 +156,35 @@ def test_second_call_makes_no_host_tensor(path, monkeypatch):
     assert calls == [] and mode.made == 0
 
 
-def test_miller_run_pointers_go_by_value():
-    """miller_run's launch passes its terms' pointers in a struct of
-    csrc/miller.cu's size (nothing copied to the card for them), and refuses
-    more terms than the struct holds before anything is launched."""
-    import ctypes
-    from pathlib import Path
+def test_miller_run_pointers_go_by_value(monkeypatch):
+    """miller_run's launch passes each operand of its terms as one pointer
+    and its strides (nothing copied to the card for them): 65 terms are not
+    refused, an operand whose terms are views of one buffer reaches the
+    launch as that buffer's pointer without a copy, and a second call makes
+    no tensor from host data (the launch recorded, not run)."""
+    from plonky2_bls12_381_pairing_torch.ops import cuda_build
 
-    src = (Path(kernels.__file__).parents[2] / "csrc" / "miller.cu").read_text()
-    assert f"constexpr int MILLER_MAX_TERMS = {kernels.MILLER_MAX_TERMS};" in src
-    assert ctypes.sizeof(kernels._MillerTerms) == 4 * 8 * kernels.MILLER_MAX_TERMS
-    n = kernels.MILLER_MAX_TERMS + 1
-    z = torch.zeros((1, 1, 3, 2, 128), dtype=torch.int32)
-    row = torch.zeros((1, 128), dtype=torch.int32)
-    with pytest.raises(ValueError, match="at most"):
-        kernels._miller_run_kernel(tower.one((1,), "cpu"), [[z] * n, [row] * n, [row] * n,
-                                                            [row] * n], (1,))
+    calls = []
+    monkeypatch.setattr(kernels, "_check", lambda t, tail, contiguous=True: None)
+    monkeypatch.setattr(kernels, "_rows", cuda_build.row_view)
+    monkeypatch.setattr(kernels, "_call", lambda name, dev, *args: calls.append((name, args)))
+    n = 65
+    coeffs = torch.zeros((2, n, 1, 3, 2, 128), dtype=torch.int32)
+    py = torch.zeros((n, 1, 128), dtype=torch.int32)
+    rows = [torch.zeros((1, 128), dtype=torch.int32) for _ in range(n)]
+    call = [list(coeffs.unbind(1)), list(py.unbind(0)), rows, [rows[0]] * n]
+    f0 = tower.one((1,), "cpu")
+    kernels._miller_run_kernel(f0, call, (1, 0))
+    with _HostTensors() as mode:
+        kernels._miller_run_kernel(f0, call, (1, 0))
+    assert mode.made == 0 and [name for name, _ in calls] == ["miller_run"] * 2
+    args = calls[1][1]
+    # coeffs and py read in place; px's separate tensors stacked; skip one
+    # tensor repeated, term stride 0
+    assert args[2:5] == (coeffs.data_ptr(), n * 6 * 128, 6 * 128)
+    assert args[5:7] == (py.data_ptr(), 128)
+    assert args[7] not in {t.data_ptr() for t in rows} and args[8] == 128
+    assert args[9:12] == (rows[0].data_ptr(), 0, n)
 
 
 # ---------------------------------------------------------------------------

@@ -658,9 +658,10 @@ def test_miller_kernels_match_plain(cuda, rows):
 
 
 @pytest.mark.gpu
-def test_miller_run_kernel_takes_any_number_of_terms(cuda):
-    """Seventeen terms, each its own points, in one launch."""
-    ops = [line_operands(3, 0x200 + t, cuda) for t in range(17)]
+@pytest.mark.parametrize("n_terms", [17, 65, 130])
+def test_miller_run_kernel_takes_any_number_of_terms(cuda, n_terms):
+    """17, 65 and 130 terms, each its own points, in one launch."""
+    ops = [line_operands(3, 0x200 + t, cuda) for t in range(n_terms)]
     coeffs = [kernels.prepare_g2_lines(*o[:5], _IS_ADD) for o in ops]
     call = (coeffs, *([o[k] for o in ops] for k in (5, 6, 7)), _DO_SQUARE)
     f0 = tower.one((3,), cuda)

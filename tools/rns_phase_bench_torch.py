@@ -7,7 +7,9 @@ Each phase is timed alone at the pipeline's scale (B elements, B/2 packed
 rows): prepare_g2_stepmajor, miller_loop (the split form that multi_pairing
 runs), miller_loop_fused (pairing's fused prepare and Miller loop), fp.inv on
 one Fq12 slot, the easy part tower.mul(tower.conjugate(f), tower.inv(f)),
-final_exponentiation and pairing. For each: CUDA-event ms per call eager
+final_exponentiation, pairing, and pairing_check with 2, 65 and 130 terms
+(true: [P, ..., P, -(T-1) P] x [Q, ..., Q]; each call one prepare_g2_lines
+and one miller_run launch). For each: CUDA-event ms per call eager
 (after a warm-up) and replayed from a CUDA graph (utils/capture.py), the
 hand-written kernels' launches in one call, and one profiled call (its kernel
 time and count, and how much of it is the hand-written kernels).
@@ -32,7 +34,8 @@ from plonky2_bls12_381_pairing_torch.ops.rns.lines import G1Affine, G2Affine
 from plonky2_bls12_381_pairing_torch.utils import refmodel as rm
 
 PHASES = ("prepare_g2_stepmajor", "miller_loop", "miller_loop_fused", "fp.inv",
-          "easy_part", "final_exponentiation", "pairing")
+          "easy_part", "final_exponentiation", "pairing", "pairing_check_2",
+          "pairing_check_65", "pairing_check_130")
 #: packed rows of encoded values tiled over the batch
 POOL = 32
 
@@ -47,6 +50,14 @@ def fq12_rows(seed: int, rows: int, dev: torch.device) -> torch.Tensor:
 
 def easy_part(f: torch.Tensor) -> torch.Tensor:
     return tower.mul(tower.conjugate(f), tower.inv(f))
+
+
+def check_terms(n_terms: int, p: G1Affine, q: G2Affine, batch: int) -> tuple[list, list]:
+    """pairing_check's n_terms terms, true: P n_terms - 1 times, then
+    -(n_terms - 1) P, each against Q (P, Q the generators)."""
+    last = G1Affine.encode([rm.G1Affine.generator().mul(n_terms - 1).neg()] * batch,
+                           device=p.y.device)
+    return [p] * (n_terms - 1) + [last], [q] * n_terms
 
 
 def main(argv=None) -> int:
@@ -73,6 +84,9 @@ def main(argv=None) -> int:
         "easy_part": (easy_part, [(f,) for f in fs]),
         "final_exponentiation": (mpr.final_exponentiation, [(f,) for f in fs]),
         "pairing": (mpr.pairing, points),
+        **{f"pairing_check_{n}": (mpr.pairing_check, [check_terms(n, p, q, args.batch)]
+                                  * args.reps)
+           for n in (2, 65, 130) if f"pairing_check_{n}" in names},
     }
     results = {name: common.run_phase(dev, name, *phases[name]) for name in names}
     common.write(args.out, {
