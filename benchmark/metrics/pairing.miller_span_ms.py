@@ -1,0 +1,9 @@
+"""pairing.miller_span_ms: the median over the timed calls of the device ms of
+the span pairing.miller_loop (miller_loop in multi_pairing), read inside the
+captured call with spans on (harness/spans_loop.py)."""
+
+from benchmark.harness import spans_loop
+
+
+def measure(run, system, args):
+    return spans_loop.median_ms(spans_loop.result(run, system, args), "pairing.miller_loop")

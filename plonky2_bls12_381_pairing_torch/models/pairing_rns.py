@@ -23,6 +23,11 @@ Granger-Scott kernel) and its one Fq12 inverse ends in the Fermat-pow kernel;
 the Fq12 products and squarings of every path are the tower kernels
 (ops/rns/kernels.py).
 
+While utils/spans.py records, multi_pairing, final_exponentiation and
+pairing_check mark their phases as spans: pairing.prepare_g2,
+pairing.miller_loop, pairing.final_exp.easy, pairing.final_exp.hard (with the
+five pairing.final_exp.cyc_exp inside it) and pairing.is_one.
+
 Stored rows are bit-identical to the JAX package's for the same inputs where
 the algorithm is the same: the Miller loop, the Granger-Scott exponentiation
 (impl "segments", "cond", "runs": the JAX package's fused form) and the
@@ -37,6 +42,7 @@ from .. import constants as C
 from ..ops.rns import fp, kernels, tower
 from ..ops.rns.lines import (G1Affine, G2Affine, G2Projective, addition_step, doubling_step,
                              scale_terms)
+from ..utils import spans
 from .schedule import (_DO_SQUARE, _FUSED_FLAGS, _GS_SEGMENTS, _IS_ADD, _KARA_SEGMENTS,
                        _MILLER_RUNS, _X_SET_BITS, NUM_COEFFS)
 
@@ -284,13 +290,24 @@ def final_exponentiation(f: torch.Tensor, impl: str = "segments") -> torch.Tenso
     The step loop keeps the JAX package's multiplies by one: each is a REDC
     that changes the stored representative, and keeping them keeps the rows
     identical."""
+    with spans.span("pairing.final_exp.easy", f.device):
+        t2 = _easy_part(f)
+    with spans.span("pairing.final_exp.hard", f.device):
+        return _hard_part(t2, impl)
+
+
+def _easy_part(f: torch.Tensor) -> torch.Tensor:
+    """f^((p^6 - 1)(p^2 + 1)), which is cyclotomic."""
     t0 = tower.conjugate(f)
     t1 = tower.inv(f)
     t2 = tower.mul(t0, t1)
     t1 = t2
     t2 = tower.frobenius_pow(t2, 2)
-    t2 = tower.mul(t2, t1)  # easy part done; t2 is cyclotomic
+    return tower.mul(t2, t1)
 
+
+def _hard_part(t2: torch.Tensor, impl: str) -> torch.Tensor:
+    """The hard part's chain on the cyclotomic t2."""
     t1pre = tower.conjugate(tower.cyclotomic_square(t2))
     one_b = tower.one(t2.shape[:-2], t2.device)
 
@@ -301,7 +318,8 @@ def final_exponentiation(f: torch.Tensor, impl: str = "segments") -> torch.Tenso
         b = t3 if bc_t3 >= 1 else one_b
         c = t3 if bc_t3 >= 2 else one_b
         x = tower.mul(tower.mul(a, b), c)
-        y = cyclotomic_exp(x, impl)
+        with spans.span("pairing.final_exp.cyc_exp", x.device):
+            y = cyclotomic_exp(x, impl)
         if a_is_t2:  # t3 is the first step's output
             t3 = y
         xs.append(x)
@@ -420,11 +438,16 @@ def multi_pairing(ps: list, qs: list) -> torch.Tensor:
     batch..., 3, 2, LANES); the Miller loop takes each term's slice of that
     buffer, a view, so no coefficient is copied. A term's rows are those of
     its own preparation: the line steps work row by row."""
-    prepared = prepare_g2_stepmajor(_stack_g2(qs))
-    f = miller_loop(ps, list(prepared.unbind(1)), [q.infinity for q in qs])
+    dev = qs[0].x.device
+    with spans.span("pairing.prepare_g2", dev):
+        prepared = prepare_g2_stepmajor(_stack_g2(qs))
+    with spans.span("pairing.miller_loop", dev):
+        f = miller_loop(ps, list(prepared.unbind(1)), [q.infinity for q in qs])
     return final_exponentiation(f)
 
 
 def pairing_check(ps: list, qs: list) -> torch.Tensor:
     """(rows, PACK) bools: prod_t e(P_t, Q_t) == 1 per packed element."""
-    return tower.is_one(multi_pairing(ps, qs))
+    f = multi_pairing(ps, qs)
+    with spans.span("pairing.is_one", f.device):
+        return tower.is_one(f)

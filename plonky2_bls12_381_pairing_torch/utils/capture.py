@@ -15,6 +15,14 @@ tensor. The hand-written kernels launch on the current stream
 (ops/cuda_build.py call), which is the capture stream, so they are captured
 with the rest; their launch counters count host calls and see no replay.
 
+While utils/spans.py records, the capture holds the span capture.graph around
+the captured call, and the pairing's own spans inside it, as nodes of the
+graph (Captured.spans); a call of such a capture records its steps as spans
+(capture.check_args, capture.copy_in, capture.launch, capture.clone_out) and
+a record of each captured span per replay. A capture made while nothing
+records is the same graph as without the span module, and its call takes no
+span.
+
 Arguments are tensors, the port's point dataclasses, and lists and tuples of
 them; any other value is part of the call's structure and must equal the
 example's. Keyword arguments are fixed at capture. Nothing is captured on the
@@ -29,6 +37,8 @@ from dataclasses import fields, is_dataclass
 from typing import Any, NamedTuple
 
 import torch
+
+from . import spans
 
 
 def flatten(x: Any) -> tuple[list[torch.Tensor], Any]:
@@ -140,19 +150,40 @@ class Captured:
             torch.cuda.current_stream(self.device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph), during_capture or contextlib.nullcontext():
-                out = fn(*static_args, **static_kwargs)
+                with spans.span("capture.graph", self.device):
+                    out = fn(*static_args, **static_kwargs)
             torch.cuda.synchronize(self.device)
+        #: the spans recorded into the graph (empty unless spans recorded)
+        self.spans = spans.take_captured()
         self._outputs, self._out_spec = flatten(out)
         #: seconds of the warm-up call and the capture together
         self.capture_seconds = time.perf_counter() - t0
 
     def __call__(self, *args):
+        if self.spans:
+            return self._call_with_spans(args)
         leaves = self.signature.check(args)
         with torch.cuda.device(self.device):
             for buf, t in zip(self._inputs, leaves):
                 buf.copy_(t)
             self.graph.replay()
             return unflatten(self._out_spec, [t.clone() for t in self._outputs])
+
+    def _call_with_spans(self, args):
+        """A call of a graph captured while spans recorded: the same steps,
+        each in a span, and a record of the graph's spans for the replay."""
+        with spans.span("capture.check_args", "cpu"):
+            leaves = self.signature.check(args)
+        with torch.cuda.device(self.device):
+            with spans.span("capture.copy_in", self.device):
+                for buf, t in zip(self._inputs, leaves):
+                    buf.copy_(t)
+            with spans.span("capture.launch", self.device):
+                self.graph.replay()
+                spans.replayed(self.spans)
+            with spans.span("capture.clone_out", self.device):
+                outs = [t.clone() for t in self._outputs]
+        return unflatten(self._out_spec, outs)
 
 
 def capture(fn, *example_args, **static_kwargs) -> Captured:

@@ -1,7 +1,7 @@
 """Observability of the port (the JAX package's utils/profiling.py): Fp-op
 counts, the RNS tier's operation model and roofline against the card's peak
-rates, a measured REDC cost, torch.profiler traces, a step timer, and one
-call's device time.
+rates, torch.profiler traces, and one call's device time. Spans inside a call
+are utils/spans.py's.
 
   rns_op_report       exact Fp-op counts of a computation (ops/rns/fp.py
                       count_fp_ops);
@@ -12,13 +12,8 @@ call's device time.
                       its SM count and maximum SM clock;
   rns_roofline        achieved operations per second (op counts x the
                       operation model below) over the card's peaks;
-  roofline_fraction   an achieved rate of some operation over the int32 peak;
-  measure_redc_unit_cost, rns_time_model
-                      fp.redc's measured cost per row, and the share of a
-                      call's time it explains;
   trace               a torch.profiler trace of a block, written to a
                       directory;
-  StepTimer           per-step times with the card synchronised;
   device_profile      one call's kernel time, launches and busy share.
 
 The JAX package's compiled_cost (XLA's cost model) has no counterpart: an
@@ -30,15 +25,12 @@ from __future__ import annotations
 
 import contextlib
 import os
-import statistics
 import subprocess
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
-
-from .. import rns_constants as RC
 
 
 def rns_op_report(fn, *args) -> dict:
@@ -177,81 +169,8 @@ def rns_roofline(pairings_per_sec: float, counts_per_pairing: dict,
     }
 
 
-def roofline_fraction(pairings_per_sec: float, ops_per_pairing: float,
-                      peak: Peak | None = None) -> float:
-    """The achieved int32 operations per second over the card's int32
-    peak."""
-    peak = card_peak() if peak is None else peak
-    return pairings_per_sec * ops_per_pairing / peak.int32_ops_per_s
-
-
 # ---------------------------------------------------------------------------
-# Measured costs
-# ---------------------------------------------------------------------------
-
-
-def _cuda_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
-        raise ValueError(f"this measurement times a CUDA device with CUDA events, got {dev}")
-    return dev
-
-
-def measure_redc_unit_cost(rows: int = 1024, comps: int = 12, reps: int = 5,
-                           device=None) -> dict:
-    """fp.redc's measured cost per (rows, comps, LANES) row, on the card:
-    chains of n1 and n2 reductions (and of square + reduction) on random
-    channel-valid residues, each timed with CUDA events (best of reps), the
-    slope between the two lengths per row. The residues decode to no
-    particular values: the arithmetic is the same for any."""
-    from ..ops.rns import fp
-
-    dev = _cuda_device(device)
-    rng = np.random.default_rng(7)
-    x = torch.from_numpy((rng.integers(0, RC.PRIME_MAX // 2, (rows, comps, RC.LANES))
-                          .astype(np.int32) * (RC.M_I32 > 1))).to(dev)
-
-    def best_ms(body, n):
-        a = body(x)  # the tables uploaded, the first matmul made
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            a = x
-            for _ in range(n):
-                a = body(a)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return min(times)
-
-    out = {}
-    n1, n2 = 16, 144
-    for name, body in (("redc", lambda a: fp.redc(fp.wrap(a))),
-                       ("mul_redc", lambda a: fp.redc(fp.mul_ss(a, a)))):
-        t1, t2 = best_ms(body, n1), best_ms(body, n2)
-        out[f"{name}_us_per_row"] = max(0.0, (t2 - t1) * 1e3 / ((n2 - n1) * rows * comps))
-    return out
-
-
-def rns_time_model(pairings_per_sec: float, counts_per_pairing: dict,
-                   unit: dict) -> dict:
-    """The share of a pairing's time that its REDC rows explain at the
-    measured cost per row (measure_redc_unit_cost): a row holds PACK
-    elements."""
-    t_redc = unit["redc_us_per_row"]
-    predicted_us = counts_per_pairing.get("redc", 0) * t_redc / RC.PACK
-    actual_us = 1e6 / pairings_per_sec
-    return {
-        "redc_us_per_row_measured": round(t_redc, 4),
-        "mul_redc_us_per_row_measured": round(unit["mul_redc_us_per_row"], 4),
-        "redc_time_share": round(predicted_us / actual_us, 4),
-    }
-
-
-# ---------------------------------------------------------------------------
-# Traces and timers
+# Traces
 # ---------------------------------------------------------------------------
 
 
@@ -271,41 +190,6 @@ def trace(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def _sync() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-class StepTimer:
-    """Per-step wall times, the card synchronised before and after each
-    step, so that a step's time holds its kernels."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.times: list[float] = []
-
-    @contextlib.contextmanager
-    def step(self):
-        _sync()
-        t0 = time.perf_counter()
-        yield
-        _sync()
-        self.times.append(time.perf_counter() - t0)
-
-    def summary(self, items_per_step: int = 1) -> dict:
-        if not self.times:
-            return {"name": self.name, "steps": 0}
-        ts = self.times
-        return {
-            "name": self.name,
-            "steps": len(ts),
-            "best_s": min(ts),
-            "median_s": statistics.median(ts),
-            "mean_s": statistics.fmean(ts),
-            "items_per_s": items_per_step / min(ts),
-        }
 
 
 def device_profile(run, host_ops: bool = True, top: int = 8) -> dict:
