@@ -15,7 +15,7 @@ Phases (any failure exits non-zero; nothing is caught):
      (e_chain, 9/9); print the oracle's build and batch seconds;
   1. build the CUDA kernels from csrc/ and report nvcc's resource use; for
      the kernels on the tensor-core REDC (cyc_exp.cu, kara_exp.cu,
-     kara_full.cu, tower_ops.cu, miller.cu) and the warp kernels (pow_static.cu,
+     kara_full.cu, tower_ops.cu, miller.cu, easy_part.cu) and the warp kernels (pow_static.cu,
      limb_tower.cu, mont.cu) each kernel's registers, shared memory and
      spills (none allowed, but in kara_full.cu: reported), and the IMMA
      instructions in the tensor-core sources' SASS;
@@ -34,7 +34,11 @@ Phases (any failure exits non-zero; nothing is caught):
      pow_static's time per dependent step against its latency model, and
      mont_pow's for one row and for 2048, beside the 608 mont_mul launches
      of the chain it replaces; mont_pow also for a 600-bit exponent, two
-     launches);
+     launches; the final exponentiation's easy part, easy_down -> tree_mul
+     per level -> pow_static -> easy_up, at the paths' 1024 packed rows (a
+     zero element in one slot and in a whole row), at 512 and at the ragged
+     counts, and easy_down's and easy_up's outputs each against the plain
+     formulas' rows, each entry point timed);
      time both,
      count the kernel's bound from the inputs (the REDC base extensions at
      the tensor cores' u8 rate, and at the int32 rate beside it), and time
@@ -195,6 +199,8 @@ TPU_LIMB_MONT = "plonky2_bls12_381_pairing_tpu/ops/pallas/mont.py"
 TPU_LIMB_TOWER = "plonky2_bls12_381_pairing_tpu/ops/pallas/tower.py"
 #: pow_static's lax.scan over the mont_mul kernel
 TPU_LIMB_FP = "plonky2_bls12_381_pairing_tpu/ops/fp.py"
+#: fp.inv's product tree, XLA ops per level
+TPU_FP_RNS = "plonky2_bls12_381_pairing_tpu/ops/rns/fp.py"
 PORT_CSRC = "plonky2_bls12_381_pairing_torch/csrc"
 #: pairings per call and per term: the JAX package's batch per chip
 BATCH = 2048
@@ -237,6 +243,16 @@ FQ12_SQ_PRODUCTS, M014_PRODUCTS, ELL_SCALE_PRODUCTS = 12 * 3, 13 * 3, 4
 KARA_SQ_PRODUCTS = 4 * 3 + 8
 DECOMPRESS_REDC_ROWS = 4 + 1 + 1 + 2 + 2 + 2
 DECOMPRESS_PRODUCTS = (3 * 3 + 2) + 2 + 1 + 2 + 3 + (3 * 3 + 1)
+#: the easy part's kernels: easy_down's REDC rows (tower.inv's norm into
+#: Fq6 6, _fq6_inv's adjugate 6 and norm 2, _fq2_inv's norm 1) and products
+#: (two Fq6 products of 6 Fq2 products, 6 and 3 Fq2 products, 2); easy_up's
+#: (_fq2_inv's scaled conjugate 2, _fq6_inv's product 6, tower.inv's 12, two
+#: Fq12 products, two Frobenius maps of 10) and products (2, 3 Fq2 products,
+#: two Fq6 products, two Fq12 products, 5 Fq2 products a map)
+EASY_DOWN_REDC_ROWS = 6 + 6 + 2 + 1
+EASY_DOWN_PRODUCTS = 2 * 6 * 3 + 6 * 3 + 3 * 3 + 2
+EASY_UP_REDC_ROWS = 2 + 6 + 12 + 2 * 12 + 2 * 10
+EASY_UP_PRODUCTS = 2 + 3 * 3 + 2 * 6 * 3 + 2 * FQ12_MUL_PRODUCTS + 2 * 5 * 3
 
 
 # Operation model of the limb tier, per row: a 48 x 48 convolution is 2,304
@@ -455,6 +471,27 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+def easy_down_plain(f: torch.Tensor) -> tuple:
+    """The plain formulas of easy_down's rows: tower.inv's norm into Fq6,
+    _fq6_inv's adjugate and norm, and _fq2_inv's norm of that (the Fp
+    element fp.inv inverts)."""
+    t = fp.redc_stack(tower._inv_norm_terms(f))
+    ts = fp.redc_stack(tower._fq6_inv_adj_terms(t))
+    norm = fp.redc_stack(tower._fq6_inv_norm_terms(t, ts))
+    return ts, norm, tower._fq2_norm(norm)
+
+
+def easy_up_plain(f: torch.Tensor, ts: torch.Tensor, norm: torch.Tensor,
+                  ninv: torch.Tensor) -> torch.Tensor:
+    """The plain formulas of easy_up from easy_down_plain's rows and the
+    inverse ninv of the Fp norm: tower.inv's remaining stages, then
+    frob^2(t) t with t = conj(f) inv(f)."""
+    dinv = fp.redc_stack(tower._fq2_conj_scaled_terms(norm, fp.wrap(ninv)))
+    ti = fp.redc_stack(tower._fq6_inv_out_terms(ts, dinv))
+    t = tower.mul_plain(tower.conjugate(f), fp.redc_stack(tower._inv_out_terms(f, ti)))
+    return tower.mul_plain(tower.frobenius_pow(t, 2), t)
+
+
 def random_fq12_rows(rng: np.random.Generator, n: int) -> np.ndarray:
     ints = np.empty((n, 12), dtype=object)
     for idx in np.ndindex(ints.shape):
@@ -590,7 +627,8 @@ def mark(label: str) -> None:
 
 
 #: the sources whose kernels run the tensor-core REDC (csrc/rns_redc_tc.cuh)
-TC_SOURCES = ("cyc_exp.cu", "kara_exp.cu", "kara_full.cu", "tower_ops.cu", "miller.cu")
+TC_SOURCES = ("cyc_exp.cu", "kara_exp.cu", "kara_full.cu", "tower_ops.cu", "miller.cu",
+              "easy_part.cu")
 #: kara_full's decompression and products spill a few words at the 64
 #: registers of four 256-thread blocks per SM (PERF.md): reported, not held
 #: to zero
@@ -668,9 +706,20 @@ def ragged_rows(rows: int) -> tuple[int, ...]:
     return tuple(n for n in (1, 3, kernel_tables.TC_ROWS + 1, rows - 1) if n < rows)
 
 
-def final_exp_launches(impl: str) -> dict:
-    """Launches of one final exponentiation, by kernel: 17 Fq12 products, 1
-    cyclotomic squaring and the inverse's Fermat pow, and five times what an
+def tree_levels(rows: int) -> int:
+    """Levels of fp.inv's product tree above its floor over `rows` packed
+    rows (padded to a power of two)."""
+    size = 1 << max(rows - 1, 0).bit_length()
+    return max(size.bit_length() - fp._TREE_FLOOR.bit_length(), 0)
+
+
+def final_exp_launches(impl: str, rows: int = -(-BATCH // RC.PACK),
+                       traced: bool = False) -> dict:
+    """Launches of one final exponentiation over `rows` packed rows, by
+    kernel: the easy part (easy_down, a tree_mul per level of the inverse's
+    product tree up and one down, its Fermat pow, easy_up; in a trace its
+    plain version, whose Fermat pow alone is a kernel), the hard part's 15
+    Fq12 products and 1 cyclotomic squaring, and five times what an
     exponentiation by |x| launches in the form `impl`: one kernel; or 6 runs
     of squarings and 5 products; or the Karabina chain (one kernel, or 6
     runs), the shared inversion's Fermat pow and the 3 stacked products of
@@ -685,7 +734,9 @@ def final_exp_launches(impl: str) -> dict:
                           "pow_static": 1},
         "karabina_full": {"kara_full": 1},
     }[impl]
-    out = {"fq12_mul": 17, "fq12_cyclotomic_square": 1, "pow_static": 1}
+    out = {"fq12_mul": 15, "fq12_cyclotomic_square": 1, "pow_static": 1}
+    if not traced:
+        out.update(easy_down=1, tree_mul=2 * tree_levels(rows), easy_up=1)
     for name, n in per_exp.items():
         out[name] = out.get(name, 0) + 5 * n
     return out
@@ -700,8 +751,11 @@ EXPECTED_LAUNCHES = {
     # one prepare kernel and one Miller loop kernel for all terms (phase 8:
     # MANY_TERMS of them)
     **{name: {**_FINAL_EXP, "prepare_g2_lines": 1, "miller_run": 1}
-       for name in ("multi_pairing_1", "pairing_check_2", f"multi_pairing_{MANY_TERMS[0]}",
+       for name in ("multi_pairing_1", "pairing_check_2",
                     *(f"pairing_check_{n}" for n in MANY_TERMS))},
+    # at SMALL elements, under the inverse's tree floor
+    f"multi_pairing_{MANY_TERMS[0]}": {**final_exp_launches("segments", -(-SMALL // RC.PACK)),
+                                       "prepare_g2_lines": 1, "miller_run": 1},
 }
 #: Kernels that no path launches: the Miller loops' ell and square, which
 #: the Miller kernels now do inside (tower.mul_by_014 / square /
@@ -811,11 +865,12 @@ EXPECTED_LAUNCHES.update({
 # Phase 6. A trace runs the RNS exponentiations as "karabina" (kara_exp
 # stays a kernel) and each Fermat chain in its recording form: the RNS
 # chains as one launch each of pow_static's recording build, so the launches
-# are those of the untraced pairing(impl="karabina"); the limb chain as one
-# mont_mul launch per product (two per bit of p - 2 after its leading one);
-# every other kernel as untraced.
+# are those of the untraced pairing(impl="karabina") but for the easy part,
+# which runs its plain version (its inverse's rows are recorded); the limb
+# chain as one mont_mul launch per product (two per bit of p - 2 after its
+# leading one); every other kernel as untraced.
 FERMAT_PRODUCTS = 2 * ((rm.P - 2).bit_length() - 1)
-_TRACED_FINAL_EXP = final_exp_launches("karabina")
+_TRACED_FINAL_EXP = final_exp_launches("karabina", traced=True)
 _LIMB_TRACED = {**limb_launches("auto", 1), "mont_pow": 0, "mont_mul": FERMAT_PRODUCTS}
 
 
@@ -1311,9 +1366,10 @@ def sharding_phase(card: str, drive, path_counts: dict, pts: dict) -> dict:
     dev = pts["p"].x.device
     rows = pts["p"].x.shape[0]
     res: dict = {"card": card}
+    fexp = final_exp_launches("segments", rows)
     EXPECTED_LAUNCHES["sharded_rns_1"] = {
-        **_FINAL_EXP, "prepare_g2_lines": 1, "miller_run": 1,
-        "fq12_mul": _FINAL_EXP["fq12_mul"] + tree_muls(rows)}
+        **fexp, "prepare_g2_lines": 1, "miller_run": 1,
+        "fq12_mul": fexp["fq12_mul"] + tree_muls(rows)}
     oracle_gt = rm.Fq12.one()
     for c in pts["want_rows"]:
         oracle_gt = oracle_gt * rm.Fq12.from_coeffs(c)
@@ -1364,7 +1420,10 @@ def sharding_phase(card: str, drive, path_counts: dict, pts: dict) -> dict:
     gt2 = [torch.from_numpy(r["gt"]).to(dev) for r in ranks]
     gt_val = all(bool(tower.is_equal(g, gt1).all()) for g in gt2)
     gt_rows = [torch.equal(g, gt1) for g in gt2]
-    want_launches = {k: v for k, v in EXPECTED_LAUNCHES["sharded_rns_1"].items() if v}
+    # each rank's easy part inverts its own half of the rows (the product of
+    # the Gt values runs over the gathered rows, as at world size 1)
+    want_launches = {k: v for k, v in {**EXPECTED_LAUNCHES["sharded_rns_1"],
+                                       "tree_mul": 2 * tree_levels(rows // 2)}.items() if v}
     for r in ranks:
         print(f"[sharded_rns_2] rank on {r['device']} ({r['backend']}): launches "
               f"{r['launches']}, {r['all_gather']} all_gather per call, ms per call "
@@ -1810,6 +1869,108 @@ def main() -> int:
                 "plain_ms": time_host(lambda: plain(*args), 3),
                 "bound": bound_ms(nbytes(*args) + args[0].numel() * 4,
                                   tower_op_ops(elements, redc_rows, products))}
+
+        # the final exponentiation's easy part (inputs: random, a zero
+        # element in one slot and a whole row of zeros): the chain of its
+        # kernels against the plain easy part at the paths' rows, at the
+        # block cell's 512 and at the ragged counts; easy_down's outputs
+        # against the plain formulas' rows, easy_up alone from them; each
+        # entry point timed (tree_mul: the 1024 products of the last level
+        # down, and the tree's 2 x 3 launches summed)
+        easy_in = f_rows.clone()
+        easy_in[1] = 0
+        easy_in[2, :, RC.SUB:] = 0
+        easy_err = check("easy_part", kernels.easy_part(easy_in),
+                         kernels.easy_part_plain(easy_in), tuple(easy_in.shape))
+        for n in (rows // 2, *ragged_rows(rows)):
+            easy_err = max(easy_err, check("easy_part", kernels.easy_part(easy_in[:n]),
+                                           kernels.easy_part_plain(easy_in[:n]), f"rows {n}:"))
+        mid = torch.empty((rows, kernels._EASY_MID, RC.LANES), dtype=torch.int32, device=dev)
+        nrm = torch.empty((rows, RC.LANES), dtype=torch.int32, device=dev)
+        w = torch.empty_like(nrm)
+        easy_out = torch.empty_like(easy_in)
+        easy_row = easy_in.stride(0)
+
+        def easy_down(i):
+            kernels._call("easy_down", dev, easy_in.data_ptr(), easy_row, mid.data_ptr(),
+                          nrm.data_ptr(), rows)
+
+        def easy_up(i):
+            kernels._call("easy_up", dev, easy_in.data_ptr(), easy_row, mid.data_ptr(),
+                          w.data_ptr(), easy_out.data_ptr(), rows)
+
+        easy_down(0)
+        ts, norm, nn = easy_down_plain(easy_in)
+        zero = fp.slot_lanes(fp.is_zero(nn))
+        easy_err = max(easy_err, check("easy_down", mid[:, :6], ts, "adjugate"),
+                       check("easy_down", mid[:, 6:8], norm, "Fq6 norm"),
+                       check("easy_down", mid[:, 8], zero.to(torch.int32), "zero mask"),
+                       check("easy_down", nrm, torch.where(zero, fp.cst(("one",), nn), nn),
+                             "Fp norm"))
+        w.copy_(kernels._tree_inv(nrm))
+        assert torch.equal(torch.where(zero, 0, w), fp.inv(nn)), "the tree is fp.inv's"
+        easy_up(0)
+        easy_err = max(easy_err, check("easy_up", easy_out,
+                                       easy_up_plain(easy_in, ts, norm, fp.inv(nn)),
+                                       "from easy_down's rows"))
+        levels = [nrm]
+        while levels[-1].shape[0] > fp._TREE_FLOOR:
+            levels.append(fp.mul(levels[-1][:levels[-1].shape[0] // 2],
+                                 levels[-1][levels[-1].shape[0] // 2:]))
+        assert len(levels) == 1 + tree_levels(rows)
+        tree_out = torch.empty_like(nrm)
+        h = rows // 2
+
+        def tree_down(i):
+            kernels._call("tree_mul", dev, w.data_ptr(), h - 1, nrm.data_ptr(), h, rows,
+                          tree_out.data_ptr(), rows)
+
+        def tree_level(level, inv_level):
+            n = level.shape[0]
+            out = torch.empty_like(level)
+            return lambda i: kernels._call("tree_mul", dev, inv_level.data_ptr(), n // 2 - 1,
+                                           level.data_ptr(), n // 2, n, out.data_ptr(), n)
+
+        tree_down(0)
+        easy_err = max(easy_err, check("tree_mul", tree_out, torch.cat(
+            [fp.mul(w[:h], nrm[h:]), fp.mul(w[:h], nrm[:h])]), "the last level down"))
+        tree_ms = 0.0
+        for k, level in enumerate(levels[:-1]):
+            n = level.shape[0]
+            up = lambda i, a=level, o=levels[k + 1], n=n: kernels._call(
+                "tree_mul", dev, a.data_ptr(), -1, a.data_ptr(), n // 2, n, o.data_ptr(), n // 2)
+            tree_ms += time_kernel(up, 5, batch=20)
+            tree_ms += time_kernel(tree_level(level, w[:n // 2]), 5, batch=20)
+        print(f"[tree_mul] the tree's {2 * (len(levels) - 1)} launches at {rows} rows: "
+              f"{tree_ms:.4f} ms summed")
+        easy_elements = RC.PACK * rows
+        f_bytes = easy_in.numel() * 4
+        kern["easy_down"] = {
+            "source": "easy_part.cu", "replaces": f"{TPU_PAIRING_RNS}:330", "max_abs_err": easy_err,
+            "ms": time_kernel(easy_down, 5, batch=20),
+            "plain_ms": time_host(lambda: easy_down_plain(easy_in), 3),
+            "bound": bound_ms(f_bytes + (mid.numel() + nrm.numel()) * 4,
+                              tower_op_ops(easy_elements, EASY_DOWN_REDC_ROWS,
+                                           EASY_DOWN_PRODUCTS))}
+        kern["tree_mul"] = {
+            "source": "easy_part.cu", "replaces": f"{TPU_FP_RNS}:815", "max_abs_err": easy_err,
+            "ms": time_kernel(tree_down, 5, batch=20),
+            "plain_ms": time_host(lambda: torch.cat([fp.mul(w[:h], nrm[h:]),
+                                                      fp.mul(w[:h], nrm[:h])]), 3),
+            "bound": bound_ms(3 * nrm.numel() * 4, tower_op_ops(easy_elements, 1, 1)),
+            "extra": {"ms_tree_launches": tree_ms}}
+        kern["easy_up"] = {
+            "source": "easy_part.cu", "replaces": f"{TPU_PAIRING_RNS}:330", "max_abs_err": easy_err,
+            "ms": time_kernel(easy_up, 5, batch=20),
+            "plain_ms": time_host(lambda: easy_up_plain(easy_in, ts, norm, w), 3),
+            "bound": bound_ms(2 * f_bytes + (mid.numel() + w.numel()) * 4,
+                              tower_op_ops(easy_elements, EASY_UP_REDC_ROWS, EASY_UP_PRODUCTS))}
+        easy_ms = time_kernel(lambda i: kernels.easy_part(easy_in), 5, batch=10)
+        print(f"[easy_part] the chain at {tuple(easy_in.shape)}: {easy_ms:.4f} ms "
+              f"({1 + 2 * tree_levels(rows) + 1 + 1} launches), plain "
+              f"{time_host(lambda: kernels.easy_part_plain(easy_in), 3):.2f} ms")
+        kern["easy_down"]["extra"] = {"ms_easy_part": easy_ms}
+        del easy_in, mid, nrm, w, easy_out, levels, ts, norm, nn, tree_out
 
         # the Miller kernels on the run's own points (two inputs at
         # infinity), at the paths' shapes: prepare_g2_lines and miller_fused
@@ -2408,7 +2569,7 @@ def main() -> int:
         assert launched == 0 if name in OFF_PATH else launched > 0, (name, launched)
     order = ["cyc_exp", "cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp",
              "kara_full", "pow_static", "miller_run", "miller_fused", "prepare_g2_lines",
-             "fq12_mul", "fq12_square",
+             "easy_down", "tree_mul", "easy_up", "fq12_mul", "fq12_square",
              "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square",
              "conv", "mont_reduce", "mont_mul", "mont_pow", "limb_fq12_mul",
              "limb_fq12_square", "limb_fq12_mul_by_014", "limb_fq12_cyclotomic_square"]

@@ -63,38 +63,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int INV = NSNAP * 8;
 constexpr int SCRATCH = INV + NSNAP;
 
-// Which of K stored values (<= 4p, canonical residues) are 0 mod p, per
-// packed slot (fp.is_zero): a value is zero iff its slot equals the residues
-// of k*p on every channel lane for one k in 0..4. Bit k of the result is set
-// if x[k] is zero in the calling thread's slot. Each thread forms a 5-bit
-// match mask per value, a warp reduces by AND, and the two warps of a slot
-// meet in `words`, one per warp of the block. Every thread of the block
-// must call it.
-template <int K>
-__device__ __forceinline__ unsigned zero_mask(const int (&x)[K], int l, int (&words)[WARPS]) {
-  static_assert(5 * K <= 32, "one 32-bit mask holds the match bits");
-  static_assert(SUB == 64, "two warps per slot");
-  unsigned m = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    unsigned b = 0;
-#pragma unroll
-    for (int r = 0; r < 5; ++r) b |= (x[k] == RNS_ZERO_TEST[r][l] ? 1u : 0u) << r;
-    if (l == RNS_ALPHA_LANE) b = 31u;  // not a channel: matches any row
-    m |= b << (5 * k);
-  }
-  m = __reduce_and_sync(0xffffffffu, m);
-  __syncthreads();  // the last call's reads of words are done
-  if ((threadIdx.x & 31) == 0) words[threadIdx.x >> 5] = static_cast<int>(m);
-  __syncthreads();
-  const int w = (threadIdx.x / SUB) * 2;
-  m = static_cast<unsigned>(words[w] & words[w + 1]);
-  unsigned z = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) z |= (((m >> (5 * k)) & 31u) != 0 ? 1u : 0u) << k;
-  return z;
-}
-
 // The bias rows of the chain, the decompression and the products, and the
 // rows of 1 and 4p, in shared memory: read from device memory (const), the
 // compiler hoists them out of the loops and holds them in registers.

@@ -19,8 +19,9 @@ G2Projective.from_affine) and the final conjugation stay outside the kernels.
 
 The final exponentiation's five exponentiations by |BLS_X| run in the form
 the `impl` keyword names (cyclotomic_exp; by default the whole-exponent
-Granger-Scott kernel) and its one Fq12 inverse ends in the Fermat-pow kernel;
-the Fq12 products and squarings of every path are the tower kernels
+Granger-Scott kernel); its easy part, with the one Fq12 inverse, is the
+easy-part kernels around the Fermat-pow kernel (kernels.easy_part); the
+other Fq12 products and squarings of every path are the tower kernels
 (ops/rns/kernels.py).
 
 While utils/spans.py records, multi_pairing, final_exponentiation and
@@ -297,13 +298,13 @@ def final_exponentiation(f: torch.Tensor, impl: str = "segments") -> torch.Tenso
 
 
 def _easy_part(f: torch.Tensor) -> torch.Tensor:
-    """f^((p^6 - 1)(p^2 + 1)), which is cyclotomic."""
-    t0 = tower.conjugate(f)
-    t1 = tower.inv(f)
-    t2 = tower.mul(t0, t1)
-    t1 = t2
-    t2 = tower.frobenius_pow(t2, 2)
-    return tower.mul(t2, t1)
+    """f^((p^6 - 1)(p^2 + 1)), which is cyclotomic: the easy-part kernels on
+    a card (kernels.easy_part); their plain version on the CPU and while a
+    witness trace records, since the trace's rows are those of fp.inv's
+    products and Fermat chain (kernels.easy_part_plain)."""
+    if fp.recording():
+        return kernels.easy_part_plain(f)
+    return kernels.easy_part(f)
 
 
 def _hard_part(t2: torch.Tensor, impl: str) -> torch.Tensor:

@@ -85,17 +85,22 @@ def static_biases() -> dict[str, list[int]]:
     ("kdinv", 2), g1 ("kg1", 2) and g0 ("kg0", 2); and of the line steps'
     stacked REDCs (line_biases: "dbl1" 8, "dbl2" 10, "dbl3" 2 or "dbl3s" 6;
     "add_a" 6, "add_b" 4, "add_c" 6, "add_d" 8 or "add_ds" 12, "add_e" 6 or
-    "add_es" 6)."""
+    "add_es" 6); and of the final exponentiation's easy part (EASY_STAGES):
+    tower.inv's stacked REDCs ("inv_norm" 6, "f6_adj" 6, "f6_norm" 2,
+    "f6_out" 6, "inv_out" 12; its Fq2 inverse's scaled conjugate is
+    "kdinv") and the Frobenius map's products ("frob", 10)."""
     z = torch.zeros((1, 12, RC.LANES), dtype=torch.int32)
     d = z[:, :2]
     w = fp.wrap(z[:, :1])
     c8 = z[:, :8]
     s = fp.wrap(z[:, 0])
-    # the decompression's single-row REDCs (the norm, the inverse over 4) and
-    # the steps of the Fermat power reduce sums of products of stored values:
-    # the kernels add no bias there
+    # the decompression's single-row REDCs (the norm, the inverse over 4),
+    # the Fq2 norm of the easy part's inverse, the steps of the Fermat power
+    # and the products of fp.inv's tree reduce sums of products of stored
+    # values: the kernels add no bias there
     assert fp.nonneg_multiple(fp.mul_rr(s, s) + fp.mul_rr(s, s)) == 0
     assert fp.nonneg_multiple(fp.mul_rr(s, tower.quarter(z))) == 0
+    assert fp.nonneg_multiple(fp.mul_ss(z[:, 0], z[:, 0])) == 0
     return {
         "kara": [fp.nonneg_multiple(r) for r in tower._kara_square_terms(c8)],
         "knum": [fp.nonneg_multiple(r) for r in tower._decompress_num_terms(c8)],
@@ -110,7 +115,26 @@ def static_biases() -> dict[str, list[int]]:
         "ell": [fp.nonneg_multiple(r) for r in lines.scale_terms(d, d, w, w)
                 for _ in range(2)],
         **line_biases(),
+        "inv_norm": [fp.nonneg_multiple(r) for r in tower._inv_norm_terms(z)],
+        "f6_adj": [fp.nonneg_multiple(r) for r in tower._fq6_inv_adj_terms(z[:, :6])],
+        "f6_norm": [fp.nonneg_multiple(r)
+                    for r in tower._fq6_inv_norm_terms(z[:, :6], z[:, :6])],
+        "f6_out": [fp.nonneg_multiple(r) for r in tower._fq6_inv_out_terms(z[:, :6], d)],
+        "inv_out": [fp.nonneg_multiple(r) for r in tower._inv_out_terms(z, z[:, :6])],
+        "frob": [fp.nonneg_multiple(r) for r in tower._frobenius_terms(z)],
     }
+
+
+#: The stacked REDCs of the final exponentiation's easy part
+#: (kernels.easy_part_plain), by bias table key, in the order the plain
+#: formulas run them: tower.inv's Fq12 norm, _fq6_inv's adjugate and norm,
+#: _fq2_inv's scaled conjugate (the Karabina decompression's "kdinv": the
+#: same formula), the adjugate times the norm's inverse and inv's product;
+#: the product conj(f) inv(f), the two Frobenius maps and the last product.
+#: The Fq2 norm in _fq2_inv and fp.inv's tree products are single REDCs and
+#: add no bias.
+EASY_STAGES = ("inv_norm", "f6_adj", "f6_norm", "kdinv", "f6_out", "inv_out", "mul", "frob",
+               "frob", "mul")
 
 
 #: The tensor-core REDC's products run over K = 32: the 31 channels of one
@@ -150,7 +174,9 @@ BIAS_TABLES = {"cyc": "RNS_CYC_BIAS", "mul": "RNS_MUL_BIAS", "sq": "RNS_SQ_BIAS"
                "kg0": "RNS_KG0_BIAS",
                **{key: f"RNS_{key.upper()}_BIAS"
                   for key in ("dbl1", "dbl2", "dbl3", "dbl3s", "add_a", "add_b",
-                              "add_c", "add_d", "add_ds", "add_e", "add_es")}}
+                              "add_c", "add_d", "add_ds", "add_e", "add_es",
+                              "inv_norm", "f6_adj", "f6_norm", "f6_out", "inv_out",
+                              "frob")}}
 
 
 def tables() -> dict[str, np.ndarray]:
@@ -182,6 +208,10 @@ def tables() -> dict[str, np.ndarray]:
         "RNS_ONE": RC.ONE[_SLOT],
         "RNS_QUARTER": tower._QUARTER[_SLOT],
         "RNS_PMUL4": RC.p_mult_row(4)[_SLOT],
+        # the Frobenius map's gamma constants (tower.FROB_NAMES), c0 and c1
+        # of each
+        "RNS_FROB": np.concatenate([tower.FROB_C[name][:, _SLOT]
+                                    for name in tower.FROB_NAMES]),
     }
     for key, name in BIAS_TABLES.items():
         t[name] = np.stack([RC.p_mult_row(k)[_SLOT] for k in biases[key]])

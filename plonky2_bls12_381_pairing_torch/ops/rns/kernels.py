@@ -25,12 +25,19 @@ ops/rns/pallas.py on the pairing's paths) and their plain PyTorch versions.
   fq12_mul, fq12_square, fq12_mul_by_014, fq12_mul_by_014_square,
   fq12_cyclotomic_square          <- pallas.fused_op over the tower formulas
                                      (csrc/tower_ops.cu)
+  easy_part(f)                    <- models/pairing_rns.py's easy part of the
+                                     final exponentiation, XLA fusions and
+                                     fp.inv's tree in the JAX package
+                                     (csrc/easy_part.cu: easy_down, a
+                                     tree_mul per level of the tree, the
+                                     Fermat root pow_static, easy_up)
 
 Each wrapper runs its plain version for a tensor on the CPU and launches its
 kernel for a tensor on a CUDA device; there is no fallback between the two.
 `launches` counts kernel launches per wrapper. The plain versions call the
 plain tower formulas (tower.<op>_plain), never the dispatching ones, so a
-plain run on a card launches none of these kernels.
+plain run on a card launches none of these kernels, but for easy_part_plain's
+Fp inverse: fp.inv's Fermat root, pow_static_fused.
 
 The kernels are built at first use and bound by ops/cuda_build.py, which the
 limb tier's kernels (ops/kernels/) share.
@@ -60,8 +67,8 @@ _PTR, _INT, _STRIDE = cuda_build.PTR, cuda_build.INT, cuda_build.STRIDE
 #: output pointer, the row count and the stream, but for the exponentiation
 #: and pow kernels, which take (a, out, rows, int array, its length, stream;
 #: kara_full a scratch buffer after out and two arrays, pow_static its steps
-#: buffer or null after out), and the square runs, which take (a, out, rows,
-#: n, stream).
+#: buffer or null after out), the square runs, which take (a, out, rows,
+#: n, stream), and easy_down, which writes two outputs.
 _KERNELS = {
     "cyc_exp": ("cyc_exp.cu", "cyc_exp_launch",
                 [_PTR, _PTR, _INT, _PTR, _INT, _PTR]),
@@ -94,6 +101,11 @@ _KERNELS = {
                                [_PTR, _STRIDE] * 5 + [_PTR, _INT, _PTR]),
     "fq12_cyclotomic_square": ("tower_ops.cu", "fq12_cyclotomic_square_launch",
                                [_PTR, _STRIDE, _PTR, _INT, _PTR]),
+    "easy_down": ("easy_part.cu", "easy_down_launch", [_PTR, _STRIDE, _PTR, _PTR, _INT, _PTR]),
+    "tree_mul": ("easy_part.cu", "tree_mul_launch",
+                 [_PTR, _INT, _PTR, _INT, _INT, _PTR, _INT, _PTR]),
+    "easy_up": ("easy_part.cu", "easy_up_launch",
+                [_PTR, _STRIDE, _PTR, _PTR, _PTR, _INT, _PTR]),
 }
 #: Kernel launches per wrapper since the last reset_launches().
 launches = {name: 0 for name in _KERNELS}
@@ -201,6 +213,16 @@ def kara_full_plain(a: torch.Tensor, segments) -> torch.Tensor:
     fulls = tower._decompress_assemble(snaps, g0s, g1s)
     p = tower.mul_plain(fulls[0::2], fulls[1::2])
     return tower.mul_plain(tower.mul_plain(p[0], p[1]), p[2])
+
+
+def easy_part_plain(f: torch.Tensor) -> torch.Tensor:
+    """The final exponentiation's easy part f^((p^6 - 1)(p^2 + 1)) of Fq12
+    rows f (..., 12, LANES), which is cyclotomic: frob^2(t) t with t =
+    conj(f) inv(f), the plain tower formulas. tower.inv's Fp inverse is
+    fp.inv, whose product tree hands its root to pow_static_fused and which,
+    while a witness trace records, records its rows."""
+    t = tower.mul_plain(tower.conjugate(f), tower.inv(f))
+    return tower.mul_plain(tower.frobenius_pow(t, 2), t)
 
 
 # The plain version of pow_static_fused is fp.pow_static; those of the tower
@@ -485,6 +507,62 @@ def _pow_static_kernel(a: torch.Tensor, exponent: int, record: bool = False):
           None if steps is None else steps.data_ptr(), a.numel() // LANES, arg.data_ptr(),
           len(bits))
     return (out, steps) if record else out
+
+
+def easy_part(f: torch.Tensor) -> torch.Tensor:
+    """The final exponentiation's easy part of Fq12 rows f (..., 12, LANES)
+    int32, any row stride (easy_part_plain): easy_down, the levels of
+    fp.inv's product tree (tree_mul) around its Fermat root (pow_static) and
+    easy_up."""
+    if f.device.type == "cpu":
+        return easy_part_plain(f)
+    return _easy_part_kernel(f)
+
+
+#: int32 per lane and packed row that easy_down leaves for easy_up
+#: (csrc/easy_part.cu MID)
+_EASY_MID = 9
+
+
+def _easy_part_kernel(f: torch.Tensor) -> torch.Tensor:
+    """easy_part's launches: easy_down writes each row's Fp norm (one where
+    it is zero), which the tree inverts, and what easy_up reads besides f
+    and that inverse."""
+    batch = tuple(f.shape[:-2])
+    fv, stride = _rows(f, batch, (12, LANES))
+    rows = math.prod(batch)
+    mid = torch.empty((rows, _EASY_MID, LANES), dtype=torch.int32, device=f.device)
+    nrm = torch.empty((rows, LANES), dtype=torch.int32, device=f.device)
+    _call("easy_down", f.device, fv.data_ptr(), stride, mid.data_ptr(), nrm.data_ptr(), rows)
+    w = _tree_inv(nrm)
+    out = torch.empty((*batch, 12, LANES), dtype=torch.int32, device=f.device)
+    _call("easy_up", f.device, fv.data_ptr(), stride, mid.data_ptr(), w.data_ptr(),
+          out.data_ptr(), rows)
+    return out
+
+
+def _tree_inv(n: torch.Tensor) -> torch.Tensor:
+    """The inverses of the rows n (rows, LANES), none zero, by fp.inv's
+    product tree with its row pairs: padded with one to a power of two, the
+    levels up to fp._TREE_FLOOR rows, the Fermat root, and back down; a
+    tree_mul launch per level (the padding read, never written)."""
+    rows = n.shape[0]
+    size = 1 << max(rows - 1, 0).bit_length()
+    levels, cur, cur_rows = [], n, rows
+    while size > fp._TREE_FLOOR:
+        size //= 2
+        nxt = torch.empty((size, LANES), dtype=torch.int32, device=n.device)
+        _call("tree_mul", n.device, cur.data_ptr(), -1, cur.data_ptr(), size, cur_rows,
+              nxt.data_ptr(), size)
+        levels.append((cur, cur_rows, size))
+        cur, cur_rows = nxt, size
+    invc = pow_static_fused(cur, fp.P - 2)
+    for level, level_rows, h in reversed(levels):
+        out = torch.empty((level_rows, LANES), dtype=torch.int32, device=n.device)
+        _call("tree_mul", n.device, invc.data_ptr(), h - 1, level.data_ptr(), h, level_rows,
+              out.data_ptr(), level_rows)
+        invc = out
+    return invc
 
 
 def _row_operand(t: torch.Tensor, batch: tuple) -> torch.Tensor:

@@ -517,20 +517,28 @@ def _conj_pair(a: torch.Tensor, i: int) -> tuple[R, R]:
     return c0, c1
 
 
+#: The gamma constant of each Fq2 component of frobenius_map's output after
+#: the first, which it leaves unscaled.
+FROB_NAMES = ("g6_1", "g6_2", "g12", "g12_1", "g12_2")
+
+
+def _frobenius_terms(a: torch.Tensor) -> list[R]:
+    """The 10 lazy outputs of frobenius_map's products, before their REDC:
+    the conjugate of Fq2 component i times FROB_NAMES[i - 1], i = 1..5."""
+    outs: list[R] = []
+    for i, name in enumerate(FROB_NAMES, start=1):
+        pair = _conj_pair(a, i)
+        g = _const_pair(name, a)
+        outs.extend(fq2_mul_r(pair[0], pair[1], g[0], g[1]))
+    return outs
+
+
 def frobenius_map(a: torch.Tensor) -> torch.Tensor:
     """One Frobenius power with the gamma6*gamma12 products folded: out c0 =
     (conj c00, conj c01 * g6_1, conj c02 * g6_2), out c1 = (conj c10 * g12,
     conj c11 * g6_1*g12, conj c12 * g6_2*g12); ONE stacked REDC for the 10
     multiplied components."""
-    names = [None, "g6_1", "g6_2", "g12", "g12_1", "g12_2"]
-    outs: list[R] = []
-    for i, name in enumerate(names):
-        if name is None:
-            continue
-        pair = _conj_pair(a, i)
-        g = _const_pair(name, a)
-        outs.extend(fq2_mul_r(pair[0], pair[1], g[0], g[1]))
-    prod = fp.redc_stack(outs)  # (..., 10, LANES)
+    prod = fp.redc_stack(_frobenius_terms(a))  # (..., 10, LANES)
     c01 = fp.barrett(fp.cst(("pmul", 4), a) - a[..., 1:2, :])
     return torch.cat([a[..., 0:1, :], c01, prod], dim=-2)
 
@@ -564,10 +572,17 @@ def _fq2_inv(a: torch.Tensor) -> torch.Tensor:
     return fp.redc_stack(_fq2_conj_scaled_terms(a, w))
 
 
-def _fq6_inv(a: torch.Tensor) -> torch.Tensor:
-    """Adjugate/norm closed form, a: (..., 6, LANES)."""
-    c = [fp.wrap(a[..., i, :]) for i in range(6)]
-    a0, a1, a2 = (c[0], c[1]), (c[2], c[3]), (c[4], c[5])
+def _fq2_pairs(a: torch.Tensor) -> list[tuple[R, R]]:
+    """The Fq2 components of a (..., 2k, LANES) as R pairs."""
+    return [(fp.wrap(a[..., 2 * i, :]), fp.wrap(a[..., 2 * i + 1, :]))
+            for i in range(a.shape[-2] // 2)]
+
+
+def _fq6_inv_adj_terms(a: torch.Tensor) -> list[R]:
+    """The 6 lazy values of the adjugate (t0, t1, t2) of an Fq6 element a
+    (..., 6, LANES): t0 = a0^2 - xi a1 a2, t1 = xi a2^2 - a0 a1,
+    t2 = a1^2 - a0 a2."""
+    a0, a1, a2 = _fq2_pairs(a)
     sq0 = fq2_mul_r(*a0, *a0)
     m12 = fq2_mul_r(*a1, *a2)
     t0 = _pair_sub(sq0, fq2_nonres(m12))
@@ -577,34 +592,54 @@ def _fq6_inv(a: torch.Tensor) -> torch.Tensor:
     sq1 = fq2_mul_r(*a1, *a1)
     m02 = fq2_mul_r(*a0, *a2)
     t2 = _pair_sub(sq1, m02)
-    ts = fp.redc_stack([t0[0], t0[1], t1[0], t1[1], t2[0], t2[1]])
-    t0s = (fp.wrap(ts[..., 0, :]), fp.wrap(ts[..., 1, :]))
-    t1s = (fp.wrap(ts[..., 2, :]), fp.wrap(ts[..., 3, :]))
-    t2s = (fp.wrap(ts[..., 4, :]), fp.wrap(ts[..., 5, :]))
+    return [t0[0], t0[1], t1[0], t1[1], t2[0], t2[1]]
+
+
+def _fq6_inv_norm_terms(a: torch.Tensor, ts: torch.Tensor) -> list[R]:
+    """The 2 lazy values of the Fq6 norm a0 t0 + xi (a2 t1 + a1 t2), ts the
+    stored adjugate."""
+    a0, a1, a2 = _fq2_pairs(a)
+    t0s, t1s, t2s = _fq2_pairs(ts)
     n0 = fq2_mul_r(*a0, *t0s)
     n1 = fq2_mul_r(*a2, *t1s)
     n2 = fq2_mul_r(*a1, *t2s)
     norm_w = _pair_add(n0, fq2_nonres(_pair_add(n1, n2)))
-    norm = fp.redc_stack([norm_w[0], norm_w[1]])
-    ninv = _fq2_inv(norm)
-    iv = (fp.wrap(ninv[..., 0, :]), fp.wrap(ninv[..., 1, :]))
+    return [norm_w[0], norm_w[1]]
+
+
+def _fq6_inv_out_terms(ts: torch.Tensor, ninv: torch.Tensor) -> list[R]:
+    """The 6 lazy values of the adjugate ts times the norm's inverse ninv."""
+    iv = _fq2_pairs(ninv)[0]
     outs = []
-    for t in (t0s, t1s, t2s):
+    for t in _fq2_pairs(ts):
         outs.extend(fq2_mul_r(*t, *iv))
-    return fp.redc_stack(outs)
+    return outs
+
+
+def _fq6_inv(a: torch.Tensor) -> torch.Tensor:
+    """Adjugate/norm closed form, a: (..., 6, LANES)."""
+    ts = fp.redc_stack(_fq6_inv_adj_terms(a))
+    norm = fp.redc_stack(_fq6_inv_norm_terms(a, ts))
+    return fp.redc_stack(_fq6_inv_out_terms(ts, _fq2_inv(norm)))
+
+
+def _inv_norm_terms(a: torch.Tensor) -> list[R]:
+    """The 6 lazy values of the Fq12 norm c0^2 - v c1^2 into Fq6."""
+    a0, a1 = _comps(a, 0, 6), _comps(a, 6, 12)
+    return _list_sub(_fq6_mul(a0, a0), _fq6_nonres(_fq6_mul(a1, a1)))
+
+
+def _inv_out_terms(a: torch.Tensor, ti: torch.Tensor) -> list[R]:
+    """The 12 lazy values of (c0 - c1 w) times ti, the norm's inverse."""
+    a0, a1 = _comps(a, 0, 6), _comps(a, 6, 12)
+    tis = _comps(ti, 0, 6)
+    return _fq6_mul(a0, tis) + _fq6_mul([fp.neg_r(x, 4) for x in a1], tis)
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
     """(c0 - c1 w)/(c0^2 - v c1^2)."""
-    a0 = _comps(a, 0, 6)
-    a1 = _comps(a, 6, 12)
-    sq0 = _fq6_mul(a0, a0)
-    sq1 = _fq6_mul(a1, a1)
-    t = fp.redc_stack(_list_sub(sq0, _fq6_nonres(sq1)))
-    ti = _comps(_fq6_inv(t), 0, 6)
-    out0 = _fq6_mul(a0, ti)
-    out1 = _fq6_mul([fp.neg_r(x, 4) for x in a1], ti)
-    return fp.redc_stack(out0 + out1)
+    t = fp.redc_stack(_inv_norm_terms(a))
+    return fp.redc_stack(_inv_out_terms(a, _fq6_inv(t)))
 
 
 def div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -133,11 +133,12 @@ def test_cpu_wrappers_run_plain_versions():
     assert torch.equal(snaps, kernels.kara_exp_plain(c, (2, 0, 1)))
     small = (1, 0, 2, 1, 0, 1)
     assert torch.equal(kernels.kara_full(a, small), kernels.kara_full_plain(a, small))
+    assert torch.equal(kernels.easy_part(f), kernels.easy_part_plain(f))
     assert set(kernels.launches) == {
         "cyc_exp", "cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp",
         "kara_full", "pow_static", "miller_run", "miller_fused", "prepare_g2_lines",
         "fq12_mul", "fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square",
-        "fq12_cyclotomic_square"}
+        "fq12_cyclotomic_square", "easy_down", "tree_mul", "easy_up"}
     assert all(n == 0 for n in kernels.launches.values())
     with pytest.raises(ValueError):
         kernels.kara_full(a, (1, 2, 3))
@@ -275,7 +276,8 @@ def test_kernel_header_matches_tables():
     rows = {"cyc": 12, "mul": 12, "sq": 12, "m014": 12, "ell": 4, "kara": 8,
             "knum": 4, "kdinv": 2, "kg1": 2, "kg0": 2,
             "dbl1": 8, "dbl2": 10, "dbl3": 2, "dbl3s": 6, "add_a": 6, "add_b": 4,
-            "add_c": 6, "add_d": 8, "add_ds": 12, "add_e": 6, "add_es": 6}
+            "add_c": 6, "add_d": 8, "add_ds": 12, "add_e": 6, "add_es": 6,
+            "inv_norm": 6, "f6_adj": 6, "f6_norm": 2, "f6_out": 6, "inv_out": 12, "frob": 10}
     assert sorted(kernel_tables.BIAS_TABLES) == sorted(rows)
     for key, name in kernel_tables.BIAS_TABLES.items():
         assert len(biases[key]) == rows[key]
@@ -288,6 +290,9 @@ def test_kernel_header_matches_tables():
     assert np.flatnonzero(~RC.IS_CH[:RC.SUB]).tolist() == [RC.ALPHA_LANE]
     assert np.array_equal(tile("RNS_ONE"), RC.ONE)
     assert np.array_equal(tile("RNS_PMUL4"), RC.p_mult_row(4))
+    # the Frobenius map's constants, c0 and c1 of each in tower.FROB_NAMES' order
+    assert np.array_equal(np.tile(arrs["RNS_FROB"], (1, RC.PACK)), np.concatenate(
+        [tower.FROB_C[name] for name in tower.FROB_NAMES]))
     assert np.array_equal(tile("RNS_QUARTER"), RC.encode_int(pow(4, -1, RC.P)))
     assert fp.decode(RC.encode_int(pow(4, -1, RC.P))) * 4 % RC.P == 1
     assert (f"#define RNS_KARA_IDX {{{', '.join(map(str, tower._KARA_IDX))}}}\n"
