@@ -137,7 +137,25 @@ Phases (any failure exits non-zero; nothing is caught):
          made;
        (d) eager, captured and device ms per call at 130 and 65 terms, and
          one miller_run launch of 65 terms at B = 2048 (the check's own
-         coefficients, one buffer) timed beside its bound.
+         coefficients, one buffer) timed beside its bound;
+  9. FastAggregateVerify's key sums (csrc/g1_aggregate.cu) and the entry
+     point that checks Electra blocks from the registry
+     (models/aggregate.py aggregate_check) at the electra-agg-64x12 cell's
+     shapes: a registry of 1,000,000 keys (4,096 distinct keys with known
+     discrete logs, repeated; tests/torch_electra.py), two epochs of 32
+     slots, a sync committee of 512, and 64 blocks of 8 attestations over
+     a slot's 31,250 validators at 0.97 participation:
+       (a) g1_sum and g1_combine each against its plain version on the same
+         card tensors (g1_combine on g1_sum_plain's partial sums), and
+         kernels.g1_aggregate against g1_aggregate_plain, bit for bit; each
+         kernel timed beside its bound (the key additions its bits set at
+         the frozen 11 products and 8 REDC rows of g1.madd; the combine's at
+         g1.add's 12 and 9) and its plain version's host time;
+       (b) aggregate_check's verdicts, eager (its launches counted exactly:
+         the two kernels, fp.inv's tree over the 704 sums, the 12-term
+         pairing_check) and captured, those the blocks were built to give,
+         with an empty attestation, a bit flipped after signing and a sum of
+         signatures off by G2; eager and captured ms per call.
 The second-to-last lines are the card's name and power limit and a JSON
 object with each kernel's numbers; the last line is
 {"ok": true, "device": {...}}.
@@ -169,6 +187,7 @@ from plonky2_bls12_381_pairing_torch import rns_constants as RC
 from plonky2_bls12_381_pairing_torch.models import pairing as lmp
 from plonky2_bls12_381_pairing_torch.models import pairing_numden as lnd
 from plonky2_bls12_381_pairing_torch.models import pairing_rns as mpr
+from plonky2_bls12_381_pairing_torch.models import aggregate as ag
 from plonky2_bls12_381_pairing_torch.models import witness
 from plonky2_bls12_381_pairing_torch.models.schedule import (_DO_SQUARE, _GS_SEGMENTS,
                                                              _IS_ADD, _KARA_SEGMENTS)
@@ -192,7 +211,8 @@ from plonky2_bls12_381_pairing_torch.utils.profiling import (REDC_ROW, TC_OPS_PE
                                                              device_profile, lane_work,
                                                              recorded_elements)
 
-KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "pairing_kat.json"
+TESTS = Path(__file__).resolve().parent / "tests"
+KAT = TESTS / "vectors" / "pairing_kat.json"
 TPU_KERNELS = "plonky2_bls12_381_pairing_tpu/ops/rns/pallas.py"
 TPU_PAIRING_RNS = "plonky2_bls12_381_pairing_tpu/models/pairing_rns.py"
 TPU_LIMB_MONT = "plonky2_bls12_381_pairing_tpu/ops/pallas/mont.py"
@@ -201,6 +221,7 @@ TPU_LIMB_TOWER = "plonky2_bls12_381_pairing_tpu/ops/pallas/tower.py"
 TPU_LIMB_FP = "plonky2_bls12_381_pairing_tpu/ops/fp.py"
 #: fp.inv's product tree, XLA ops per level
 TPU_FP_RNS = "plonky2_bls12_381_pairing_tpu/ops/rns/fp.py"
+TPU_TOWER_RNS = "plonky2_bls12_381_pairing_tpu/ops/rns/tower.py"
 PORT_CSRC = "plonky2_bls12_381_pairing_torch/csrc"
 #: pairings per call and per term: the JAX package's batch per chip
 BATCH = 2048
@@ -214,6 +235,11 @@ SMALL = 16
 #: first against its plain version
 MANY_TERMS = (65, 130)
 FEW_ROWS = 3
+#: phase 9, the electra-agg-64x12 cell's shapes: the registry's keys, its
+#: epochs, slots an epoch, sync committee and distinct keys; the blocks and
+#: their attestations
+AGG_REGISTRY = (1_000_000, 2, 32, 512, 4096)
+AGG_BLOCKS, AGG_ATTS = 64, 8
 
 # Peak rates of one H100 SXM at its full 700 W limit (NVIDIA data sheet):
 # HBM at 3.35 TB/s; int32 multiply-adds on 64 INT32 lanes per SM x 132 SMs at
@@ -235,6 +261,8 @@ CYC_SQ_PRODUCTS, FQ12_MUL_PRODUCTS = 9 * 3 + 12, 18 * 3
 #: product mul_by_014 (5 + 3 + 5 Fq2 products) and of the Miller step's
 #: coefficient scaling
 FQ12_SQ_PRODUCTS, M014_PRODUCTS, ELL_SCALE_PRODUCTS = 12 * 3, 13 * 3, 4
+#: of a Frobenius power (5 Fq2 products by its gamma constants)
+FROB_PRODUCTS = 5 * 3
 #: of a Karabina squaring (4 Fq2 products, 8 lifts), and of one snapshot's
 #: decompression: its REDC rows (4 numerator candidates, the norm, the
 #: inverse over 4, the scaled conjugate, g1, g0) and its products (3 Fq2
@@ -489,7 +517,7 @@ def easy_up_plain(f: torch.Tensor, ts: torch.Tensor, norm: torch.Tensor,
     dinv = fp.redc_stack(tower._fq2_conj_scaled_terms(norm, fp.wrap(ninv)))
     ti = fp.redc_stack(tower._fq6_inv_out_terms(ts, dinv))
     t = tower.mul_plain(tower.conjugate(f), fp.redc_stack(tower._inv_out_terms(f, ti)))
-    return tower.mul_plain(tower.frobenius_pow(t, 2), t)
+    return tower.mul_plain(tower.frobenius_map_plain(tower.frobenius_map_plain(t)), t)
 
 
 def random_fq12_rows(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -719,11 +747,11 @@ def final_exp_launches(impl: str, rows: int = -(-BATCH // RC.PACK),
     kernel: the easy part (easy_down, a tree_mul per level of the inverse's
     product tree up and one down, its Fermat pow, easy_up; in a trace its
     plain version, whose Fermat pow alone is a kernel), the hard part's 15
-    Fq12 products and 1 cyclotomic squaring, and five times what an
-    exponentiation by |x| launches in the form `impl`: one kernel; or 6 runs
-    of squarings and 5 products; or the Karabina chain (one kernel, or 6
-    runs), the shared inversion's Fermat pow and the 3 stacked products of
-    the snapshots' tree."""
+    Fq12 products, 1 cyclotomic squaring and 3 Frobenius maps, and five
+    times what an exponentiation by |x| launches in the form `impl`: one
+    kernel; or 6 runs of squarings and 5 products; or the Karabina chain
+    (one kernel, or 6 runs), the shared inversion's Fermat pow and the 3
+    stacked products of the snapshots' tree."""
     per_exp = {
         "segments": {"cyc_exp": 1},
         "cond": {"cyc_exp_cond": 1},
@@ -734,7 +762,7 @@ def final_exp_launches(impl: str, rows: int = -(-BATCH // RC.PACK),
                           "pow_static": 1},
         "karabina_full": {"kara_full": 1},
     }[impl]
-    out = {"fq12_mul": 15, "fq12_cyclotomic_square": 1, "pow_static": 1}
+    out = {"fq12_mul": 15, "fq12_cyclotomic_square": 1, "fq12_frobenius": 3, "pow_static": 1}
     if not traced:
         out.update(easy_down=1, tree_mul=2 * tree_levels(rows), easy_up=1)
     for name, n in per_exp.items():
@@ -757,6 +785,13 @@ EXPECTED_LAUNCHES = {
     f"multi_pairing_{MANY_TERMS[0]}": {**final_exp_launches("segments", -(-SMALL // RC.PACK)),
                                        "prepare_g2_lines": 1, "miller_run": 1},
 }
+#: FastAggregateVerify's two kernels, fp.inv's tree over the 11 sets' sums of
+#: the blocks, then a 12-term pairing_check at AGG_BLOCKS / 2 packed rows
+EXPECTED_LAUNCHES["aggregate_check"] = dict(
+    Counter(final_exp_launches("segments", AGG_BLOCKS // RC.PACK))
+    + Counter({"prepare_g2_lines": 1, "miller_run": 1, "g1_sum": 1, "g1_combine": 1,
+               "tree_mul": 2 * tree_levels(AGG_BLOCKS * (AGG_ATTS + ag.OTHER_SETS) // RC.PACK),
+               "pow_static": 1}))
 #: Kernels that no path launches: the Miller loops' ell and square, which
 #: the Miller kernels now do inside (tower.mul_by_014 / square /
 #: mul_by_014_square keep them for their other callers); phase 2 holds them
@@ -1618,6 +1653,115 @@ def many_terms_phase(card: str, drive, path_counts: dict, kern: dict, pts: dict)
     return res
 
 
+def aggregate_phase(card: str, drive, path_counts: dict, kern: dict, check,
+                    dev=torch.device("cuda")) -> dict:
+    """Phase 9 (module docstring): the key sums' kernels against their plain
+    versions and aggregate_check's verdicts at the electra-agg-64x12 cell's
+    shapes. check(name, got, want, note) holds a kernel to its plain
+    version."""
+    sys.path.insert(0, str(TESTS))
+    import torch_electra
+
+    t = time.perf_counter()
+    n_keys, epochs, spe, sync, pool = AGG_REGISTRY
+    keys = torch_electra.make_keys(n_keys, epochs, spe, sync, seed=0x6240, device=dev,
+                                   pool=pool)
+    data = torch_electra.make_blocks(keys, AGG_BLOCKS, AGG_ATTS, 0x6250, empty=(5,),
+                                     flipped=(17,), sigma_off=(40,), device=dev)
+    reg, blocks = keys.registry, data.blocks
+    pieces, sets = ag.layout(AGG_BLOCKS, AGG_ATTS, blocks.att_bits.shape[-1], reg.slot_size,
+                             blocks.sync_bits.shape[-1], reg.sync_size, ag.PIECE_BITS, dev)
+    set_off, words = ag._set_words(blocks, reg)
+    args = (reg.keys, reg.index, set_off, words, pieces, sets)
+    n_pieces, n_sets = pieces.shape[0], sets.shape[0]
+    print(f"[aggregate] {n_keys:,} keys ({pool} distinct), {AGG_BLOCKS} blocks of "
+          f"{AGG_ATTS} attestations over {reg.slot_size:,} validators: {n_sets} sets, "
+          f"{n_pieces:,} pieces of {ag.PIECE_BITS} bits; inputs {time.perf_counter() - t:.1f} s")
+    mark("phase 9's inputs")
+
+    # (a) each kernel against its plain version on the same tensors
+    partial = torch.empty((n_pieces, 3, RC.SUB), dtype=torch.int32, device=dev)
+    sums = torch.empty((3, n_sets, RC.SUB), dtype=torch.int32, device=dev)
+
+    def g1_sum(i):
+        kernels._call("g1_sum", dev, reg.keys.data_ptr(), reg.index.data_ptr(),
+                      set_off.data_ptr(), words.data_ptr(), pieces.data_ptr(), n_pieces,
+                      partial.data_ptr())
+
+    def g1_combine(i, src=partial):
+        kernels._call("g1_combine", dev, src.data_ptr(), sets.data_ptr(), n_sets,
+                      sums.data_ptr())
+
+    def plain(fn, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    want_partial, sum_plain_ms = plain(kernels.g1_sum_plain, *args[:5])
+    g1_sum(0)
+    sum_err = check("g1_sum", partial, want_partial, f"{n_pieces} pieces")
+    want_sums, combine_plain_ms = plain(kernels.g1_combine_plain, want_partial, sets)
+    g1_combine(0, want_partial)
+    combine_err = check("g1_combine", sums, want_sums, f"{n_sets} sets")
+    want, agg_plain_ms = plain(kernels.g1_aggregate_plain, *args)
+    kernels.reset_launches()
+    got = kernels.g1_aggregate(*args)
+    err = check("g1_aggregate", got, want, "the two launches")
+    assert {k: v for k, v in kernels.launches.items() if v} == {"g1_sum": 1, "g1_combine": 1}
+    del want_partial, want_sums, want, got
+    # the additions the bits set (a key each) and the combine's (a set's
+    # pieces after its first)
+    adds = int(np.unpackbits(words.cpu().numpy().view(np.uint8)).sum())
+    combines = int((sets[:, 1] - 1).clamp(min=0).sum().item())
+    kern["g1_sum"] = {
+        "source": "g1_aggregate.cu", "replaces": "none: new in the port", "max_abs_err": max(
+            sum_err, err),
+        "ms": time_kernel(g1_sum, 5), "plain_ms": sum_plain_ms,
+        "bound": bound_ms(nbytes(*args[:5], partial), tower_op_ops(adds, 8, 11)),
+        "extra": {"additions": adds, "pieces": n_pieces, "plain_ms_g1_aggregate": agg_plain_ms}}
+    kern["g1_combine"] = {
+        "source": "g1_aggregate.cu", "replaces": "none: new in the port",
+        "max_abs_err": max(combine_err, err),
+        "ms": time_kernel(g1_combine, 5, batch=10), "plain_ms": combine_plain_ms,
+        "bound": bound_ms(nbytes(partial, sets, sums), tower_op_ops(combines, 9, 12)),
+        "extra": {"additions": combines, "sets": n_sets}}
+    for name in ("g1_sum", "g1_combine"):
+        k = kern[name]
+        print(f"[{name}] {k['ms']:.4f} ms on {card}, bound {k['bound'][0]:.4f} ms by "
+              f"{k['bound'][1]} [int32 only {k['bound'][2]:.4f}], plain {k['plain_ms']:.1f} ms, "
+              f"{k['extra']['additions']:,} additions")
+    del partial, sums
+    mark("phase 9's kernels against their plain versions")
+
+    # (b) the entry point, eager and captured
+    run = lambda: ag.aggregate_check(blocks, reg)  # noqa: E731
+    ok, path_counts["aggregate_check"] = drive("aggregate_check", run, batch=AGG_BLOCKS)
+    got = ok.reshape(-1).cpu().numpy()
+    print(f"[aggregate_check] {int(got.sum())}/{AGG_BLOCKS} blocks valid, false at "
+          f"{np.flatnonzero(~got).tolist()}; as built: {np.array_equal(got, data.valid)}")
+    assert np.array_equal(got, data.valid) and (~got).sum() == 3
+    eager = host_times(run, 3)
+    step = capture(ag.aggregate_check, blocks, registry=reg)
+    same = torch.equal(step(blocks), ok)
+    print(f"[capture aggregate_check] replay equals the eager call: {same}")
+    assert same
+    captured = host_times(lambda: step(blocks), 5)
+    res = {"card": card, "blocks": AGG_BLOCKS, "sets": n_sets, "additions": adds,
+           "eager_ms": statistics.median(eager), "captured_ms": statistics.median(captured),
+           "captured_ms_min": min(captured), "captured_ms_max": max(captured),
+           "capture_s": step.capture_seconds}
+    print(f"[aggregate_check] B={AGG_BLOCKS}: eager {res['eager_ms']:.1f} ms, captured "
+          f"{res['captured_ms']:.1f} ms (min {min(captured):.1f}, max {max(captured):.1f}); "
+          f"on {card}")
+    del step, keys, data, reg, blocks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mark("phase 9's entry point driven and captured")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1820,7 +1964,7 @@ def main() -> int:
               f"latency model {steps * POW_STEP_CYC / CLOCK_HZ * 1e3:.4f} ms "
               f"({POW_STEP_CYC} cycles, {POW_STEP_CYC / CLOCK_HZ * 1e6:.4f} us per step)")
 
-        # the five tower ops at (rows, 12, LANES). Each is timed over four
+        # the six tower ops at (rows, 12, LANES). Each is timed over four
         # copies of its operands in turn (more than the L2 cache holds
         # together), 50 calls between two events.
         g_rows = torch.from_numpy(random_fq12_rows(rng, 2 * rows)).to(dev)
@@ -1839,6 +1983,7 @@ def main() -> int:
                                        M014_PRODUCTS + FQ12_SQ_PRODUCTS),
             "fq12_cyclotomic_square": (tower.cyclotomic_square_plain, (cyc_in,), 12,
                                        CYC_SQ_PRODUCTS),
+            "fq12_frobenius": (tower.frobenius_map_plain, (f_rows,), 10, FROB_PRODUCTS),
         }
         for name, (plain, args, redc_rows, products) in tower_cases.items():
             wrapper = getattr(kernels, name)
@@ -1864,7 +2009,8 @@ def main() -> int:
                                      f"{tuple(st.shape)} x one (strides {one4.stride()})"))
             copies = [fresh_operands(args) for _ in range(4)]
             kern[name] = {
-                "source": "tower_ops.cu", "replaces": 116, "max_abs_err": err,
+                "source": "tower_ops.cu", "max_abs_err": err,
+                "replaces": (f"{TPU_TOWER_RNS}:499" if name == "fq12_frobenius" else 116),
                 "ms": time_kernel(lambda i: wrapper(*copies[i % 4]), 5, batch=50),
                 "plain_ms": time_host(lambda: plain(*args), 3),
                 "bound": bound_ms(nbytes(*args) + args[0].numel() * 4,
@@ -2563,14 +2709,19 @@ def main() -> int:
                                 {"p": p_dev, "q": q_dev, "ps": ps, "qs": qs})
         print(json.dumps({"many_terms": mres}))
 
+        # -- 9. key sums from the registry --------------------------------------
+        ares = aggregate_phase(card, drive, path_counts, kern, check)
+        print(json.dumps({"aggregate": ares}))
+
     all_kernels = cuda_build.all_launches()
     for name in all_kernels:
         launched = sum(c[name] for c in path_counts.values())
         assert launched == 0 if name in OFF_PATH else launched > 0, (name, launched)
     order = ["cyc_exp", "cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp",
              "kara_full", "pow_static", "miller_run", "miller_fused", "prepare_g2_lines",
-             "easy_down", "tree_mul", "easy_up", "fq12_mul", "fq12_square",
-             "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square",
+             "easy_down", "tree_mul", "easy_up", "g1_sum", "g1_combine", "fq12_mul",
+             "fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square", "fq12_cyclotomic_square",
+             "fq12_frobenius",
              "conv", "mont_reduce", "mont_mul", "mont_pow", "limb_fq12_mul",
              "limb_fq12_square", "limb_fq12_mul_by_014", "limb_fq12_cyclotomic_square"]
     assert sorted(order) == sorted(kern) == sorted(all_kernels)

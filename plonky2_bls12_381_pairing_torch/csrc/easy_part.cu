@@ -67,26 +67,6 @@ __device__ __forceinline__ void bias_redc_k(int (&x)[K], const int (*bias)[SUB],
   redc<K>(x, c, s);
 }
 
-// One Frobenius power (tower.frobenius_map): component pairs 1..5
-// conjugated (4p - c1) and scaled by their gamma constants in one 10-row
-// REDC, pair 0 conjugated without a product.
-__device__ __forceinline__ void frobenius(int (&a)[12], int pmul4, int l, const Lane& c,
-                                          TcSmem<TILE>& s) {
-  int x[10];
-#pragma unroll
-  for (int i = 1; i < 6; ++i) {
-    const F2 conj{a[2 * i], sub_m(pmul4, a[2 * i + 1], c)};
-    const F2 g{RNS_FROB[2 * i - 2][l], RNS_FROB[2 * i - 1][l]};
-    const F2 p = f2_mul(conj, g, c);
-    x[2 * i - 2] = p.c0;
-    x[2 * i - 1] = p.c1;
-  }
-  bias_redc_k(x, RNS_FROB_BIAS, l, c, s);
-  a[1] = sub_m(pmul4, a[1], c);
-#pragma unroll
-  for (int k = 0; k < 10; ++k) a[2 + k] = x[k];
-}
-
 // f: rows of (12, 128) int32, sf ints apart; mid: (rows, MID, 128); nrm:
 // (rows, 128), the norm's norm with one in the slots where it is zero.
 __global__ void __launch_bounds__(THREADS, 2)
@@ -260,8 +240,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // frob^2(t) t
 #pragma unroll
     for (int k = 0; k < 12; ++k) g[k] = a[k];
-    frobenius(g, pmul4, l, c, s);
-    frobenius(g, pmul4, l, c, s);
+    frobenius<SUB>(g, l, c, s, bias_at(RNS_FROB_BIAS, l));
+    frobenius<SUB>(g, l, c, s, bias_at(RNS_FROB_BIAS, l));
     fq12_mul<SUB>(g, a, c, s, bias_at(RNS_MUL_BIAS, l));
     if (r.live) store12(g, out, r.row, t.lane);
   }

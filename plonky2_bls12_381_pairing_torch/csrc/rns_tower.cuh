@@ -1,9 +1,10 @@
 // Fq6/Fq12 tower formulas on residues, shared by the RNS kernels
-// (cyc_exp.cu, kara_exp.cu, kara_full.cu, miller.cu, tower_ops.cu). Each
-// Fq12 op takes the thread's 12 residues, computes the formula of
-// ops/rns/tower.py lane by lane with canonical residues, adds the bias rows
-// its plain formula adds before the REDC (rns_tables.h) and ends in one
-// 12-row REDC; the Karabina squaring does the same on 8.
+// (cyc_exp.cu, kara_exp.cu, kara_full.cu, miller.cu, tower_ops.cu,
+// easy_part.cu). Each Fq12 op takes the thread's 12 residues, computes the
+// formula of ops/rns/tower.py lane by lane with canonical residues, adds the
+// bias rows its plain formula adds before the REDC (rns_tables.h) and ends in
+// one 12-row REDC; the Karabina squaring does the same on 8, the Frobenius
+// map on 10.
 //
 // A bias argument points at the thread's entry of the first of 12 rows that
 // lie BS ints apart: a register array (BS = 1) or a table of bias rows at
@@ -213,6 +214,28 @@ __device__ __forceinline__ void fq12_mul_by_014(int (&a)[12], F2 d0, F2 d1, F2 d
       f2_sub(f2_sub(t1[2], aa[2], c), bb[2], c),
   };
   bias_redc<BS>(a, outs, c, s, bias);
+}
+
+// One Frobenius power (tower.frobenius_map_plain): component pairs 1..5
+// conjugated (4p - c1) and scaled by their gamma constants (RNS_FROB at the
+// thread's lane l) in one 10-row REDC, pair 0 conjugated without a product.
+template <int BS, class S>
+__device__ __forceinline__ void frobenius(int (&a)[12], int l, const Lane& c, S& s,
+                                          const int* bias) {
+  const int pmul4 = RNS_PMUL4[l];
+  int x[10];
+#pragma unroll
+  for (int i = 1; i < 6; ++i) {
+    const F2 conj{a[2 * i], sub_m(pmul4, a[2 * i + 1], c)};
+    const F2 g{RNS_FROB[2 * i - 2][l], RNS_FROB[2 * i - 1][l]};
+    const F2 p = f2_mul(conj, g, c);
+    x[2 * i - 2] = add_m(p.c0, bias[(2 * i - 2) * BS], c);
+    x[2 * i - 1] = add_m(p.c1, bias[(2 * i - 1) * BS], c);
+  }
+  redc<10>(x, c, s);
+  a[1] = sub_m(pmul4, a[1], c);
+#pragma unroll
+  for (int k = 0; k < 10; ++k) a[2 + k] = x[k];
 }
 
 // The thread's entry of a bias table of rns_tables.h.

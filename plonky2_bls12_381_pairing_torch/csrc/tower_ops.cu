@@ -1,14 +1,17 @@
 // One kernel per Fq12 tower op: the full product, the complex squaring, the
 // sparse product mul_by_014, mul_by_014 followed by a squaring (the Miller
-// step's ell and square), and the Granger-Scott cyclotomic squaring.
+// step's ell and square), the Granger-Scott cyclotomic squaring, and one
+// Frobenius power.
 //
 // Replaces the TPU kernel fused_op (plonky2_bls12_381_pairing_tpu/ops/rns/
 // pallas.py, _build), which runs any tower formula as one kernel over row
 // blocks with the formula's constants collected into its inputs; the JAX
-// package sends exactly these five formulas through it (ops/rns/tower.py).
-// Their plain PyTorch versions are ops/rns/tower.py mul_plain, square_plain,
-// mul_by_014_plain, mul_by_014_square_plain and cyclotomic_square_plain; the
-// rows agree bit for bit.
+// package sends the first five formulas through it (ops/rns/tower.py) and
+// leaves the Frobenius map to XLA's fusions, which on a card were some 250
+// small PyTorch kernels a call. Their plain PyTorch versions are
+// ops/rns/tower.py mul_plain, square_plain, mul_by_014_plain,
+// mul_by_014_square_plain, cyclotomic_square_plain and frobenius_map_plain;
+// the rows agree bit for bit.
 //
 // What bounds them on an H100: bytes, narrowly. An op reads one or two 6 KB
 // Fq12 rows and writes one, and does one 12-row REDC plus the formula's lane
@@ -78,6 +81,20 @@ __global__ void __launch_bounds__(THREADS, 2)
     int f[12];
     load12m(f, a, sa, r, t.lane);
     cyc_square<SUB>(f, t.c, s, bias_at(RNS_CYC_BIAS, t.l));
+    if (r.live) store12(f, out, r.row, t.lane);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+    fq12_frobenius_kernel(const int* __restrict__ a, long long sa, int* __restrict__ out,
+                          int rows) {
+  __shared__ TcSmem<TILE> s;
+  const Block t = enter(s);
+  for (int tile = blockIdx.x; tile * TILE < rows; tile += gridDim.x) {
+    const Row r = row_of<TILE>(tile, rows);
+    int f[12];
+    load12m(f, a, sa, r, t.lane);
+    frobenius<SUB>(f, t.l, t.c, s, bias_at(RNS_FROB_BIAS, t.l));
     if (r.live) store12(f, out, r.row, t.lane);
   }
 }
@@ -160,6 +177,16 @@ extern "C" int fq12_cyclotomic_square_launch(const int* a, long long sa, int* ou
     const int grid = grid_for<fq12_cyclotomic_square_kernel>(rows);
     fq12_cyclotomic_square_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         a, sa, out, rows);
+  }
+  return launched();
+}
+
+extern "C" int fq12_frobenius_launch(const int* a, long long sa, int* out, int rows,
+                                     void* stream) {
+  if (rows > 0) {
+    const int grid = grid_for<fq12_frobenius_kernel>(rows);
+    fq12_frobenius_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, sa, out,
+                                                                                  rows);
   }
   return launched();
 }

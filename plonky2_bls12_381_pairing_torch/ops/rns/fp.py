@@ -91,6 +91,34 @@ def encode(values) -> np.ndarray:
     return out
 
 
+#: encode_slots: 16-bit limbs of a value below 2^384, and the weight of each
+#: limb on each lane, 2^(16 k) mod m (0 where the lane has no channel)
+_LIMB_BITS, _LIMBS = 16, 24
+_LIMB_WEIGHTS = np.array([[pow(2, _LIMB_BITS * k, int(m)) if m > 1 else 0
+                           for m in RC.MODULI_SLOT] for k in range(_LIMBS)], dtype=np.float64)
+_SLOT_MODULI = np.maximum(RC.MODULI_SLOT, 1).astype(np.int64)
+_ENCODE_CHUNK = 1 << 16
+
+
+def encode_slots(values) -> np.ndarray:
+    """Python ints -> (n, SUB) int32: each value's residue slot of its
+    Montgomery form x*MA mod p, as fp.encode lays a slot out (alpha lane 0),
+    in bulk: the forms' 16-bit limbs (numpy) times each limb's weight mod a
+    lane's modulus, summed as float64 (every partial sum an integer below
+    2^34: exact) and reduced. encode's slots bit for bit (element i of
+    encode's rows is slot i), at a few microseconds a value where encode
+    takes tens."""
+    values = list(values)
+    out = np.empty((len(values), RC.SUB), dtype=np.int32)
+    for lo in range(0, len(values), _ENCODE_CHUNK):
+        part = values[lo:lo + _ENCODE_CHUNK]
+        raw = b"".join((int(v) % P * RC.MA % P).to_bytes(2 * _LIMBS, "little") for v in part)
+        limbs = np.frombuffer(raw, dtype="<u2").reshape(len(part), _LIMBS)
+        sums = limbs.astype(np.float64) @ _LIMB_WEIGHTS
+        out[lo:lo + len(part)] = sums.astype(np.int64) % _SLOT_MODULI
+    return out
+
+
 #: CRT weights of base A: (MA/a_i)^{-1} mod a_i and MA/a_i.
 _CRT_INV = [pow(RC.MA // a, -1, a) for a in RC.A_PRIMES]
 _CRT_MI = [RC.MA // a for a in RC.A_PRIMES]

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ... import rns_constants as RC
-from . import fp, lines, tower
+from . import fp, g1, lines, tower
 
 _SLOT = slice(0, RC.SUB)
 
@@ -88,7 +88,9 @@ def static_biases() -> dict[str, list[int]]:
     "add_es" 6); and of the final exponentiation's easy part (EASY_STAGES):
     tower.inv's stacked REDCs ("inv_norm" 6, "f6_adj" 6, "f6_norm" 2,
     "f6_out" 6, "inv_out" 12; its Fq2 inverse's scaled conjugate is
-    "kdinv") and the Frobenius map's products ("frob", 10)."""
+    "kdinv") and the Frobenius map's products ("frob", 10); and of the G1
+    additions' second stages (g1.py: "g1_madd" 3, "g1_add" 3), whose first
+    stages reduce products of stored values and add no bias."""
     z = torch.zeros((1, 12, RC.LANES), dtype=torch.int32)
     d = z[:, :2]
     w = fp.wrap(z[:, :1])
@@ -101,6 +103,9 @@ def static_biases() -> dict[str, list[int]]:
     assert fp.nonneg_multiple(fp.mul_rr(s, s) + fp.mul_rr(s, s)) == 0
     assert fp.nonneg_multiple(fp.mul_rr(s, tower.quarter(z))) == 0
     assert fp.nonneg_multiple(fp.mul_ss(z[:, 0], z[:, 0])) == 0
+    pt = g1.G1Projective(z[:, 0], z[:, 0], z[:, 0])
+    assert not any(map(fp.nonneg_multiple, g1.madd_terms(pt, z[:, 0], z[:, 0])
+                       + g1.add_terms(pt, pt)))
     return {
         "kara": [fp.nonneg_multiple(r) for r in tower._kara_square_terms(c8)],
         "knum": [fp.nonneg_multiple(r) for r in tower._decompress_num_terms(c8)],
@@ -122,6 +127,8 @@ def static_biases() -> dict[str, list[int]]:
         "f6_out": [fp.nonneg_multiple(r) for r in tower._fq6_inv_out_terms(z[:, :6], d)],
         "inv_out": [fp.nonneg_multiple(r) for r in tower._inv_out_terms(z, z[:, :6])],
         "frob": [fp.nonneg_multiple(r) for r in tower._frobenius_terms(z)],
+        "g1_madd": [fp.nonneg_multiple(r) for r in g1.madd_level2_terms(pt, z[:, :5])],
+        "g1_add": [fp.nonneg_multiple(r) for r in g1.add_level2_terms(z[:, :6])],
     }
 
 
@@ -176,7 +183,7 @@ BIAS_TABLES = {"cyc": "RNS_CYC_BIAS", "mul": "RNS_MUL_BIAS", "sq": "RNS_SQ_BIAS"
                   for key in ("dbl1", "dbl2", "dbl3", "dbl3s", "add_a", "add_b",
                               "add_c", "add_d", "add_ds", "add_e", "add_es",
                               "inv_norm", "f6_adj", "f6_norm", "f6_out", "inv_out",
-                              "frob")}}
+                              "frob", "g1_madd", "g1_add")}}
 
 
 def tables() -> dict[str, np.ndarray]:

@@ -25,12 +25,22 @@ ops/rns/pallas.py on the pairing's paths) and their plain PyTorch versions.
   fq12_mul, fq12_square, fq12_mul_by_014, fq12_mul_by_014_square,
   fq12_cyclotomic_square          <- pallas.fused_op over the tower formulas
                                      (csrc/tower_ops.cu)
+  fq12_frobenius                  <- tower.frobenius_map, XLA fusions in the
+                                     JAX package (csrc/tower_ops.cu)
   easy_part(f)                    <- models/pairing_rns.py's easy part of the
                                      final exponentiation, XLA fusions and
                                      fp.inv's tree in the JAX package
                                      (csrc/easy_part.cu: easy_down, a
                                      tree_mul per level of the tree, the
                                      Fermat root pow_static, easy_up)
+  g1_aggregate(keys, index, set_off, words, pieces, sets)
+                                  new: FastAggregateVerify's key sums, one
+                                     projective G1 point per signature set
+                                     (csrc/g1_aggregate.cu: g1_sum per piece
+                                     of a set's bits, g1_combine per set)
+  inv_nonzero(a)                  fp.inv's tree on rows with no zero
+                                     (csrc/easy_part.cu's tree_mul and
+                                     csrc/pow_static.cu)
 
 Each wrapper runs its plain version for a tensor on the CPU and launches its
 kernel for a tensor on a CUDA device; there is no fallback between the two.
@@ -49,6 +59,7 @@ import math
 
 import torch
 
+from ... import rns_constants as RC
 from .. import cuda_build
 # the shared build and binding under the names this module has always had
 from ..cuda_build import build, build_log  # noqa: F401
@@ -56,7 +67,7 @@ from ..cuda_build import call as _call
 from ..cuda_build import check as _check
 from ..cuda_build import row_view as _row_view  # noqa: F401
 from ..cuda_build import rows as _rows
-from . import fp, lines, tower
+from . import fp, g1, lines, tower
 
 LANES = fp.LANES
 _FQ2 = (2, LANES)
@@ -101,11 +112,15 @@ _KERNELS = {
                                [_PTR, _STRIDE] * 5 + [_PTR, _INT, _PTR]),
     "fq12_cyclotomic_square": ("tower_ops.cu", "fq12_cyclotomic_square_launch",
                                [_PTR, _STRIDE, _PTR, _INT, _PTR]),
+    "fq12_frobenius": ("tower_ops.cu", "fq12_frobenius_launch",
+                       [_PTR, _STRIDE, _PTR, _INT, _PTR]),
     "easy_down": ("easy_part.cu", "easy_down_launch", [_PTR, _STRIDE, _PTR, _PTR, _INT, _PTR]),
     "tree_mul": ("easy_part.cu", "tree_mul_launch",
                  [_PTR, _INT, _PTR, _INT, _INT, _PTR, _INT, _PTR]),
     "easy_up": ("easy_part.cu", "easy_up_launch",
                 [_PTR, _STRIDE, _PTR, _PTR, _PTR, _INT, _PTR]),
+    "g1_sum": ("g1_aggregate.cu", "g1_sum_launch", [_PTR] * 5 + [_INT, _PTR, _PTR]),
+    "g1_combine": ("g1_aggregate.cu", "g1_combine_launch", [_PTR, _PTR, _INT, _PTR, _PTR]),
 }
 #: Kernel launches per wrapper since the last reset_launches().
 launches = {name: 0 for name in _KERNELS}
@@ -222,7 +237,72 @@ def easy_part_plain(f: torch.Tensor) -> torch.Tensor:
     fp.inv, whose product tree hands its root to pow_static_fused and which,
     while a witness trace records, records its rows."""
     t = tower.mul_plain(tower.conjugate(f), tower.inv(f))
-    return tower.mul_plain(tower.frobenius_pow(t, 2), t)
+    return tower.mul_plain(tower.frobenius_map_plain(tower.frobenius_map_plain(t)), t)
+
+
+def _packed(t: torch.Tensor, width: int = LANES) -> torch.Tensor:
+    """(n, ...) elements -> (ceil(n / 2), width) packed rows (width LANES for
+    slots (n, SUB), PACK for (n,) flags), an odd tail's empty slot filled
+    with the last element."""
+    if t.shape[0] % RC.PACK:
+        t = torch.cat([t, t[-1:]])
+    return t.reshape(-1, width)
+
+
+def _slots(t: torch.Tensor, n: int) -> torch.Tensor:
+    """_packed's inverse: the first n slots, (n, SUB)."""
+    return t.reshape(-1, RC.SUB)[:n]
+
+
+def _where(mask: torch.Tensor, a: g1.G1Projective, b: g1.G1Projective) -> g1.G1Projective:
+    """a where the (n,) bools mask are set, b elsewhere, for points in
+    _packed's rows."""
+    m = fp.slot_lanes(_packed(mask, RC.PACK))
+    return g1.G1Projective(*(torch.where(m, x, y) for x, y in
+                             ((a.x, b.x), (a.y, b.y), (a.z, b.z))))
+
+
+def g1_sum_plain(keys, index, set_off, words, pieces) -> torch.Tensor:
+    """g1_sum's partial sums (n_pieces, 3, SUB) with the plain formulas, all
+    pieces at once: per step i, each piece's bit bit0 + i of its set (word
+    word + (bit0 + i) / 32, bit (bit0 + i) % 32) picks the key keys[index[
+    set_off[set] + bit0 + i]], which Algorithm 8 (g1.madd) adds where the bit
+    is set and the step is inside the piece."""
+    n = pieces.shape[0]
+    pc = pieces.long()
+    base = torch.where(pc[:, 3] > 0, set_off.long()[pc[:, 0]], 0)
+    acc = g1.G1Projective.identity((n,), keys.device)
+    for i in range(int(pc[:, 3].max()) if n else 0):
+        pos = pc[:, 2] + i
+        live = i < pc[:, 3]
+        w = words[torch.where(live, pc[:, 1] + pos // 32, 0)].long()
+        bit = live & (((w >> (pos % 32)) & 1) != 0)
+        key = keys[index[torch.where(bit, base + pos, 0)].long()]
+        acc = _where(bit, g1.madd(acc, _packed(key[:, 0]), _packed(key[:, 1])), acc)
+    return torch.stack([_slots(c, n) for c in (acc.x, acc.y, acc.z)], dim=1)
+
+
+def g1_combine_plain(partial: torch.Tensor, sets: torch.Tensor) -> torch.Tensor:
+    """g1_combine's sums (3, n_sets, SUB) with the plain formulas: each set's
+    pieces' partial sums (sets: first piece, count) added in order by
+    Algorithm 7 (g1.add), all sets at once."""
+    n = sets.shape[0]
+    first, count = sets[:, 0].long(), sets[:, 1].long()
+
+    def pick(rows: torch.Tensor) -> g1.G1Projective:
+        v = partial[rows]
+        return g1.G1Projective(*(_packed(v[:, k]) for k in range(3)))
+
+    acc = _where(count > 0, pick(first), g1.G1Projective.identity((n,), partial.device))
+    for j in range(1, int(count.max()) if n else 0):
+        live = j < count
+        acc = _where(live, g1.add(acc, pick(torch.where(live, first + j, 0))), acc)
+    return torch.stack([_slots(c, n) for c in (acc.x, acc.y, acc.z)])
+
+
+def g1_aggregate_plain(keys, index, set_off, words, pieces, sets) -> torch.Tensor:
+    """g1_aggregate with the plain formulas: g1_sum_plain, g1_combine_plain."""
+    return g1_combine_plain(g1_sum_plain(keys, index, set_off, words, pieces), sets)
 
 
 # The plain version of pow_static_fused is fp.pow_static; those of the tower
@@ -565,6 +645,49 @@ def _tree_inv(n: torch.Tensor) -> torch.Tensor:
     return invc
 
 
+def g1_aggregate(keys, index, set_off, words, pieces, sets) -> torch.Tensor:
+    """The sums of signature sets' public keys, (3, n_sets, SUB): X, Y, Z of
+    set j at [:, j], each an element's slot, so that [k] viewed as
+    (n_sets / 2, LANES) is the sets' packed rows. keys: (n, 2, SUB), key i's
+    x and y slots (fp.encode_slots); index: (L,) positions into keys; set_off:
+    (n_sets,) each set's first position in index; words: the sets' bit words
+    (32 bits to a word, bit i of a word at 1 << i); pieces: (n_pieces, 4) runs
+    of a set's bits (set, its first word in words, its first bit in the set,
+    its bits); sets: (n_sets, 2) each set's first piece and its count of
+    pieces, in order; all int32. A set's sum is its pieces' partial sums
+    added in order, each piece's from the point at infinity, bit by bit."""
+    if keys.device.type == "cpu":
+        return g1_aggregate_plain(keys, index, set_off, words, pieces, sets)
+    return _g1_aggregate_kernel(keys, index, set_off, words, pieces, sets)
+
+
+def _g1_aggregate_kernel(keys, index, set_off, words, pieces, sets) -> torch.Tensor:
+    """g1_aggregate's two launches: g1_sum into a partial sum per piece, then
+    g1_combine."""
+    _check(keys, (2, RC.SUB))
+    for t in (index, set_off, words):
+        _check(t, ())
+    _check(pieces, (4,))
+    _check(sets, (2,))
+    n_pieces, n_sets = pieces.shape[0], sets.shape[0]
+    partial = torch.empty((n_pieces, 3, RC.SUB), dtype=torch.int32, device=keys.device)
+    _call("g1_sum", keys.device, keys.data_ptr(), index.data_ptr(), set_off.data_ptr(),
+          words.data_ptr(), pieces.data_ptr(), n_pieces, partial.data_ptr())
+    out = torch.empty((3, n_sets, RC.SUB), dtype=torch.int32, device=keys.device)
+    _call("g1_combine", keys.device, partial.data_ptr(), sets.data_ptr(), n_sets,
+          out.data_ptr())
+    return out
+
+
+def inv_nonzero(a: torch.Tensor) -> torch.Tensor:
+    """The inverses of stored Fp rows a (..., LANES), none of them zero:
+    fp.inv's product tree, on a card by its tree_mul and pow_static kernels
+    (_tree_inv), on the CPU by fp.inv; the same rows."""
+    if a.device.type == "cpu":
+        return fp.inv(a)
+    return _tree_inv(a.reshape(-1, LANES).contiguous()).reshape(a.shape)
+
+
 def _row_operand(t: torch.Tensor, batch: tuple) -> torch.Tensor:
     """A (batch..., LANES) operand the Miller kernels read as contiguous
     (rows, LANES)."""
@@ -718,6 +841,13 @@ def fq12_cyclotomic_square(a: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return tower.cyclotomic_square_plain(a)
     return _tower_op("fq12_cyclotomic_square", a)
+
+
+def fq12_frobenius(a: torch.Tensor) -> torch.Tensor:
+    """a^p (tower.frobenius_map)."""
+    if a.device.type == "cpu":
+        return tower.frobenius_map_plain(a)
+    return _tower_op("fq12_frobenius", a)
 
 
 def fq12_mul_by_014(a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,

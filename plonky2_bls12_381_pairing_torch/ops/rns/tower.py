@@ -10,10 +10,11 @@ bit-identical.
 Element layout: Fq12 = (..., 12, LANES) int32 in flat tower order
 [c0.c0.c0, c0.c0.c1, c0.c1.c0, ..., c1.c2.c1].
 
-mul, square, mul_by_014, mul_by_014_square and cyclotomic_square go through
-their wrappers in ops/rns/kernels.py (the JAX package's fused_op sites): the
-plain formula `<op>_plain` for a tensor on the CPU, one CUDA kernel for a
-tensor on a card. compressed_square is kernels.kara_square_run with n = 1.
+mul, square, mul_by_014, mul_by_014_square and cyclotomic_square (the JAX
+package's fused_op sites) and frobenius_map go through their wrappers in
+ops/rns/kernels.py: the plain formula `<op>_plain` for a tensor on the CPU,
+one CUDA kernel for a tensor on a card. compressed_square is
+kernels.kara_square_run with n = 1.
 """
 
 from __future__ import annotations
@@ -533,7 +534,7 @@ def _frobenius_terms(a: torch.Tensor) -> list[R]:
     return outs
 
 
-def frobenius_map(a: torch.Tensor) -> torch.Tensor:
+def frobenius_map_plain(a: torch.Tensor) -> torch.Tensor:
     """One Frobenius power with the gamma6*gamma12 products folded: out c0 =
     (conj c00, conj c01 * g6_1, conj c02 * g6_2), out c1 = (conj c10 * g12,
     conj c11 * g6_1*g12, conj c12 * g6_2*g12); ONE stacked REDC for the 10
@@ -541,6 +542,10 @@ def frobenius_map(a: torch.Tensor) -> torch.Tensor:
     prod = fp.redc_stack(_frobenius_terms(a))  # (..., 10, LANES)
     c01 = fp.barrett(fp.cst(("pmul", 4), a) - a[..., 1:2, :])
     return torch.cat([a[..., 0:1, :], c01, prod], dim=-2)
+
+
+def frobenius_map(a: torch.Tensor) -> torch.Tensor:
+    return _kernels().fq12_frobenius(a)
 
 
 def frobenius_pow(a: torch.Tensor, n: int) -> torch.Tensor:

@@ -107,6 +107,7 @@ def test_cpu_wrappers_run_plain_versions():
     assert torch.equal(kernels.fq12_square(f), tower.square_plain(f))
     assert torch.equal(kernels.fq12_cyclotomic_square(a),
                        tower.cyclotomic_square_plain(a))
+    assert torch.equal(kernels.fq12_frobenius(f), tower.frobenius_map_plain(f))
     assert torch.equal(kernels.fq12_mul_by_014(f, d0, d1, d4),
                        tower.mul_by_014_plain(f, d0, d1, d4))
     assert torch.equal(kernels.fq12_mul_by_014_square(f, d0, d1, d4, skip),
@@ -114,6 +115,7 @@ def test_cpu_wrappers_run_plain_versions():
     # the dispatching tower ops are those wrappers
     assert torch.equal(tower.mul(f, g), tower.mul_plain(f, g))
     assert torch.equal(tower.square(f), tower.square_plain(f))
+    assert torch.equal(tower.frobenius_map(f), tower.frobenius_map_plain(f))
     args = miller_inputs(2, 0xEC, "cpu")
     assert torch.equal(kernels.miller_run(*args, _DO_SQUARE),
                        kernels.miller_run_plain(*args, _DO_SQUARE))
@@ -134,11 +136,20 @@ def test_cpu_wrappers_run_plain_versions():
     small = (1, 0, 2, 1, 0, 1)
     assert torch.equal(kernels.kara_full(a, small), kernels.kara_full_plain(a, small))
     assert torch.equal(kernels.easy_part(f), kernels.easy_part_plain(f))
+    # two sets of one piece over the index list [1, 0]: key 1, then keys 1
+    # and 0
+    keys = torch.from_numpy(fp_rows(4, 0xED)).reshape(2, 2, RC.SUB)
+    agg = (keys, torch.tensor([1, 0], dtype=torch.int32), torch.tensor([0, 0], dtype=torch.int32),
+           torch.tensor([1, 3], dtype=torch.int32),
+           torch.tensor([[0, 0, 0, 1], [1, 1, 0, 2]], dtype=torch.int32),
+           torch.tensor([[0, 1], [1, 1]], dtype=torch.int32))
+    assert torch.equal(kernels.g1_aggregate(*agg), kernels.g1_aggregate_plain(*agg))
     assert set(kernels.launches) == {
         "cyc_exp", "cyc_exp_cond", "cyc_square_run", "kara_square_run", "kara_exp",
         "kara_full", "pow_static", "miller_run", "miller_fused", "prepare_g2_lines",
         "fq12_mul", "fq12_square", "fq12_mul_by_014", "fq12_mul_by_014_square",
-        "fq12_cyclotomic_square", "easy_down", "tree_mul", "easy_up"}
+        "fq12_cyclotomic_square", "fq12_frobenius", "easy_down", "tree_mul", "easy_up",
+        "g1_sum", "g1_combine"}
     assert all(n == 0 for n in kernels.launches.values())
     with pytest.raises(ValueError):
         kernels.kara_full(a, (1, 2, 3))
@@ -197,6 +208,8 @@ def test_wrappers_refuse_other_devices():
                  lambda: kernels.kara_exp(c, _KARA_SEGMENTS),
                  lambda: kernels.kara_full(f, _KARA_SEGMENTS),
                  lambda: kernels.fq12_cyclotomic_square(f),
+                 lambda: kernels.fq12_frobenius(f),
+                 lambda: tower.frobenius_map(f),
                  lambda: kernels.fq12_mul_by_014(f, d, d, d),
                  lambda: kernels.fq12_mul_by_014_square(f, d, d, d, row),
                  lambda: tower.mul(f, f),
@@ -277,7 +290,8 @@ def test_kernel_header_matches_tables():
             "knum": 4, "kdinv": 2, "kg1": 2, "kg0": 2,
             "dbl1": 8, "dbl2": 10, "dbl3": 2, "dbl3s": 6, "add_a": 6, "add_b": 4,
             "add_c": 6, "add_d": 8, "add_ds": 12, "add_e": 6, "add_es": 6,
-            "inv_norm": 6, "f6_adj": 6, "f6_norm": 2, "f6_out": 6, "inv_out": 12, "frob": 10}
+            "inv_norm": 6, "f6_adj": 6, "f6_norm": 2, "f6_out": 6, "inv_out": 12, "frob": 10,
+            "g1_madd": 3, "g1_add": 3}
     assert sorted(kernel_tables.BIAS_TABLES) == sorted(rows)
     for key, name in kernel_tables.BIAS_TABLES.items():
         assert len(biases[key]) == rows[key]
@@ -548,7 +562,8 @@ def test_pow_kernel_recording_build_matches_plain(cuda, rows):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", ["fq12_mul", "fq12_square", "fq12_cyclotomic_square",
-                                "fq12_mul_by_014", "fq12_mul_by_014_square"])
+                                "fq12_mul_by_014", "fq12_mul_by_014_square",
+                                "fq12_frobenius"])
 def test_tower_kernel_matches_plain(cuda, op):
     """Each per-op kernel against its plain formula, with operands the paths
     hand it: a broadcast one, slices of a wider stack, two batch axes; and
@@ -567,13 +582,16 @@ def test_tower_kernel_matches_plain(cuda, op):
     plain = {"fq12_mul": tower.mul_plain, "fq12_square": tower.square_plain,
              "fq12_cyclotomic_square": tower.cyclotomic_square_plain,
              "fq12_mul_by_014": tower.mul_by_014_plain,
-             "fq12_mul_by_014_square": tower.mul_by_014_square_plain}[op]
+             "fq12_mul_by_014_square": tower.mul_by_014_square_plain,
+             "fq12_frobenius": tower.frobenius_map_plain}[op]
     cases = {
         "fq12_mul": [(f, g), (f, tower.one((2, 3), cuda)), (f[0, 1], g)],
         "fq12_square": [(f,)],
         "fq12_cyclotomic_square": [(g,)],
         "fq12_mul_by_014": [(f, d0, d1, d4)],
         "fq12_mul_by_014_square": [(f, d0, d1, d4), (f, d0, d1, d4, skip)],
+        # the final exponentiation's tail maps every other element of a stack
+        "fq12_frobenius": [(f,), (g,), (torch.stack([f[0], g[0], f[1]])[0::2],)],
     }[op]
     big_f = device_rows(max(TC_ROWS), 0xFA, cuda)
     big_g = device_rows(max(TC_ROWS), 0xFB, cuda, cyclotomic=True)
@@ -593,6 +611,7 @@ def test_tower_kernel_matches_plain(cuda, op):
             "fq12_cyclotomic_square": [(b,), (b[:1].expand(n, 12, RC.LANES),)],
             "fq12_mul_by_014": [(a, e0, e1, e4), (a, e0b, e1, e4)],
             "fq12_mul_by_014_square": [(a, e0, e1, e4, sk), (a0, e0b, e1, e4, sk)],
+            "fq12_frobenius": [(a,), (a0,)],
         }[op]
     if op == "fq12_mul":
         # the final exponentiation's stacked tail product against a

@@ -220,7 +220,7 @@ def test_cpu_wrappers_run_plain_versions():
     # both tiers' counters are reported together
     total = cuda_build.all_launches()
     assert set(total) == {*mont.launches, *tower.launches, *rns_kernels.launches}
-    assert len(total) == 26  # 18 RNS kernels, 8 limb kernels
+    assert len(total) == 29  # 21 RNS kernels, 8 limb kernels
     with pytest.raises(ValueError):
         mont.mont_reduce(torch.zeros((1, 96), dtype=torch.int32))
     with pytest.raises(ValueError):
